@@ -1,0 +1,258 @@
+"""The reference side of the PyTorch port's parity tests.
+
+``repro`` (the JAX package) is the reference. Everything of it that
+traces under 64-bit mode (generators, families under the pool's
+runner, job tables bound to kernels, pool rounds, the CLI) runs in a
+separate process: ``python tests/test_torch_reference.py IN.json OUT``
+reads a batch of tasks, computes the reference outputs and writes them
+to OUT. That process maps the removed ``jax.experimental.enable_x64``
+onto ``jax.enable_x64(True)`` for itself only; the pytest process never
+changes JAX's configuration.
+
+The ``test_torch_*.py`` files call ``run_reference`` once per module
+(a module-scoped fixture) and compare with the port under the
+reference's own tolerance, ``(stat, p)`` within rtol 1e-5 / atol 1e-7
+(``tests/test_backends.py``), widened for p only by the reference's
+float32 rounding of ``x^a e^-x / Gamma(a)`` (``p_tolerance``).
+"""
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+EPS32 = float(np.finfo(np.float32).eps)
+RTOL, ATOL = 1e-5, 1e-7
+
+
+def run_reference(tasks: list, out_dir: str, timeout: float = 600) -> list:
+    """Run ``tasks`` through the reference in a subprocess; returns one
+    result per task (arrays come back as numpy arrays)."""
+    os.makedirs(out_dir, exist_ok=True)
+    spec = os.path.join(out_dir, "tasks.json")
+    with open(spec, "w") as f:
+        json.dump(tasks, f)
+    env = dict(os.environ, JAX_PLATFORMS="cpu",
+               PYTHONPATH=os.path.join(REPO, "src") + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), spec,
+                           out_dir], env=env, cwd=REPO, capture_output=True,
+                          text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"reference runner failed ({proc.returncode}):\n"
+                           f"{proc.stdout[-3000:]}\n{proc.stderr[-3000:]}")
+    with open(os.path.join(out_dir, "results.json")) as f:
+        results = json.load(f)
+    return [_load_arrays(r, out_dir) for r in results]
+
+
+def _load_arrays(obj, out_dir):
+    if isinstance(obj, dict):
+        if set(obj) == {"npy"}:
+            return np.load(os.path.join(out_dir, obj["npy"]))
+        return {k: _load_arrays(v, out_dir) for k, v in obj.items()}
+    if isinstance(obj, list):
+        return [_load_arrays(v, out_dir) for v in obj]
+    return obj
+
+
+# ---------------------------------------------------------------------------
+# tolerance
+
+def gamma_args(kname: str, params: dict, stat: float):
+    """``(a, x)`` of the incomplete gamma behind a family's p-value, or
+    None for the families whose p is normal or Kolmogorov."""
+    if kname in ("gap", "poker", "coupon", "weight", "rank", "serial2d"):
+        dof = {"gap": params.get("maxlen", 20),
+               "poker": params.get("hand", 5) - 2,
+               "coupon": params.get("maxlen", 30) - 1,
+               "weight": 12, "rank": 3,
+               "serial2d": params.get("d", 64) ** 2 - 1}[kname]
+        return dof / 2.0, stat / 2.0
+    if kname == "birthday":
+        return stat + 1.0, params["n"] ** 3 / (4.0 * (1 << params["tbits"]))
+    if kname == "collision":
+        k, n = float(1 << params["kbits"]), params["n"]
+        return stat + 1.0, max(n - k + k * (1.0 - 1.0 / k) ** n, 1e-9)
+    if kname == "pairstream" and params.get("mode") in ("match", "shift"):
+        lam = (params["n"] if params["mode"] == "match" else 36) / 2.0 ** 32
+        return stat + 1.0, lam
+    return None
+
+
+def gamma_tolerance(a: float, x: float, p: float) -> float:
+    """Absolute tolerance on a reference p-value computed from the
+    incomplete gamma at ``(a, x)``: the contract (atol 1e-7 + rtol 1e-5)
+    plus twice the reference's float32 rounding of its prefactor
+    ``x^a e^-x / Gamma(a)``, ``eps32 * (a|ln x| + x + |ln Gamma(a)|)``,
+    which scales the smaller tail ``min(p, 1 - p)`` computed from it;
+    bounded here by ``max(p, 1 - p)``."""
+    a, x = max(a, 1e-9), max(x, 1e-300)
+    kappa = abs(a * math.log(x)) + x + abs(math.lgamma(a))
+    return ATOL + RTOL * abs(p) + 2 * EPS32 * kappa * max(p, 1.0 - p)
+
+
+def p_tolerance(kname: str, params: dict, stat: float, p: float) -> float:
+    """Absolute tolerance on a family's reference p-value: the contract,
+    widened by ``gamma_tolerance`` where the p comes from an incomplete
+    gamma."""
+    ga = gamma_args(kname, params, stat)
+    if ga is None or not np.isfinite(stat):
+        return ATOL + RTOL * abs(p)
+    return gamma_tolerance(ga[0], ga[1], p)
+
+
+def assert_stat_p(kname, params, ref, got, what="", stat_atol=ATOL):
+    """(stat, p) parity: stat within the contract (rtol 1e-5, atol
+    ``stat_atol``), p within ``p_tolerance``."""
+    (s_ref, p_ref), (s_got, p_got) = ref, got
+    np.testing.assert_allclose(s_got, s_ref, rtol=RTOL, atol=stat_atol,
+                               err_msg=f"stat {kname} {params} {what}")
+    tol = p_tolerance(kname, params, s_ref, p_ref)
+    assert abs(p_got - p_ref) <= tol, (
+        f"p {kname} {params} {what}: port {p_got!r} vs reference "
+        f"{p_ref!r} (tolerance {tol:.3g})")
+
+
+# ---------------------------------------------------------------------------
+# the reference runner (subprocess only)
+
+def _install_x64_alias():
+    """The reference calls ``jax.experimental.enable_x64``, removed in
+    JAX 0.9; map it to ``jax.enable_x64(True)`` in this process only."""
+    import jax
+    import jax.experimental
+    if not hasattr(jax.experimental, "enable_x64"):
+        jax.experimental.enable_x64 = lambda: jax.enable_x64(True)
+
+
+def _entry_row(e):
+    return [int(e.index), e.name, e.kname, [list(kv) for kv in e.params],
+            int(e.n_words), float(e.cost), int(e.group), int(e.part),
+            int(e.n_parts), e.backend]
+
+
+def _task_words(task, save):
+    import jax
+    from repro.common.compat import under_x64
+    from repro.rng import generators as G
+    from repro.rng import sources as S
+    out = []
+    for name, seed, stream, n, offset in task["cases"]:
+        fn = G.GENERATORS[name]
+        if offset is None:
+            run = under_x64(jax.jit(lambda s, t: fn(s, t, n)))
+        else:
+            run = under_x64(jax.jit(lambda s, t: fn(s, t, n, offset)))
+        out.append(save(np.asarray(run(np.int32(seed), np.int32(stream)),
+                                   np.uint32)))
+    return {"words": out, "gen_ids": dict(S.GEN_IDS),
+            "counter_based": list(S.counter_based_names()),
+            "threefry_partitionable":
+                bool(jax.config.jax_threefry_partitionable)}
+
+
+def _task_families(task, save):
+    import jax
+    import jax.numpy as jnp
+    from repro.common.compat import under_x64
+    from repro.stats import backends as B
+    bits = np.load(task["bits"])
+    out = []
+    for kname, params in task["cases"]:
+        for backend in task["backends"]:
+            fn = B.get_kernel(kname, backend)
+            run = under_x64(jax.jit(lambda b, fn=fn, kw=params: tuple(
+                jnp.asarray(v, jnp.float32) for v in fn(b, **kw))))
+            for row in range(bits.shape[0]):
+                s, p = run(bits[row])
+                out.append([kname, params, backend, row, float(s), float(p)])
+    return out
+
+
+def _task_tables(task, save):
+    from repro.core import pool
+    from repro.core.battery import build_battery, split_entry
+    from repro.core.policies import get_policy
+    from repro.core.scheduler import make_plan
+    out = []
+    for battery, scale in task["specs"]:
+        entries = build_battery(battery, scale)
+        jobs = get_policy("over_decompose").decompose(entries) or entries
+        splits = [[_entry_row(s) for s in split_entry(e, parts, 100)]
+                  for e in entries for parts in (2, 3, 8)]
+        sizes, bids = pool.bucket_table(entries)
+        plans = {f"{mode}/{w}": make_plan([e.cost for e in entries], w, mode,
+                                          entries=entries).assignment.tolist()
+                 for mode in ("roundrobin", "lpt", "adaptive")
+                 for w in (1, 3, 8)}
+        out.append({"entries": [_entry_row(e) for e in entries],
+                    "over_decompose": [_entry_row(j) for j in jobs],
+                    "splits": splits, "bucket_sizes": sizes,
+                    "bucket_ids": bids.tolist(),
+                    "stream_table": pool.stream_table(jobs).tolist(),
+                    "block_ratio": pool.block_ratio(entries),
+                    "plans": plans})
+    return out
+
+
+def _task_pool(task, save):
+    from repro.core.api import PoolSession, RunSpec
+    session = PoolSession()
+    spec = RunSpec(task["battery"], tuple(task["generators"]),
+                   seeds=tuple(task["seeds"]), scale=task["scale"],
+                   policy=task["policy"], backend=task["backend"])
+    handle = session.submit(spec)
+    res = handle.result()
+    runs = res.runs if hasattr(res, "runs") else {spec.generators[0]: res}
+    return {"jobs": [_entry_row(j) for j in handle._compiled.jobs],
+            "job_results": [{str(k): list(v) for k, v in r.items()}
+                            for r in handle._results],
+            "results": {g: {str(k): list(v) for k, v in r.results.items()}
+                        for g, r in runs.items()},
+            "verdicts": {g: r.verdict.decision for g, r in runs.items()},
+            "rounds_run": res.rounds_run}
+
+
+def _task_cli(task, save):
+    import runpy
+    argv = sys.argv
+    sys.argv = ["repro.launch.battery", *task["argv"]]
+    try:
+        runpy.run_module("repro.launch.battery", run_name="__main__")
+        code = 0
+    except SystemExit as exc:
+        code = exc.code
+    finally:
+        sys.argv = argv
+    return {"exit_code": code}
+
+
+_TASKS = {"words": _task_words, "families": _task_families,
+          "tables": _task_tables, "pool": _task_pool, "cli": _task_cli}
+
+
+def _main(spec_path: str, out_dir: str) -> None:
+    _install_x64_alias()
+    with open(spec_path) as f:
+        tasks = json.load(f)
+    counter = [0]
+
+    def save(arr):
+        name = f"a{counter[0]}.npy"
+        counter[0] += 1
+        np.save(os.path.join(out_dir, name), arr)
+        return {"npy": name}
+
+    results = [_TASKS[t["kind"]](t, save) for t in tasks]
+    with open(os.path.join(out_dir, "results.json"), "w") as f:
+        json.dump(results, f)
+
+
+if __name__ == "__main__":
+    _main(sys.argv[1], sys.argv[2])
