@@ -6,12 +6,17 @@
 Phases, one line each (details in ``reports/chip_smoke/chip_smoke.json``):
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: both CUDA kernels compiled from the checkout for sm_90a, one
-   nvcc each, started together;
-3. kernels: each kernel against its plain PyTorch version on the card,
-   bitwise, at the parity shapes below and at every shape the main path
-   gave it; CUDA-event medians of the kernel, its plain version and
-   ``torch.bincount`` (the library yardstick, used nowhere in the port);
+2. build: the three CUDA kernels compiled from the checkout for sm_90a,
+   one nvcc each, started together;
+3. kernels: the histogram and GF(2)-rank kernels against their plain
+   PyTorch versions on the card, bitwise, at the parity shapes below; the
+   flash-attention kernel against its plain version at the reference
+   suite's shapes, the serving shapes (bfloat16 and float32) and one
+   padded length, within the
+   reference suite's tolerances (2e-5 float32, 2e-2 bfloat16);
+   CUDA-event medians of each kernel, its plain version and the library
+   yardstick (``torch.bincount``, ``scaled_dot_product_attention``; timed
+   here, used nowhere in the port);
 4. main path: ``repro_torch.launch.battery`` on cuda with
    ``--backend accelerated``: BigCrush at scale 1.0 and the adaptive
    SmallCrush acceptance run, splitmix64 + randu. Launch counts are zeroed
@@ -19,12 +24,25 @@ Phases, one line each (details in ``reports/chip_smoke/chip_smoke.json``):
    the reference's golden JSON (``src/repro_torch/golden``);
 5. the same two runs with ``--backend reference``: same verdicts and the
    same (stat, p); then the warm wall time of BigCrush under both
-   backends, in turns.
+   backends, in turns;
+6. serve: qwen2-1.5b at full width on cuda, weights from seed 0, bfloat16
+   compute: 4 requests of 512-token prompts with 64 greedy tokens each,
+   then 2 of 2048 tokens with 16 each; 28 flash-attention launches per
+   prefill;
+7. serve parity: the 4 x 512 requests in float32 compute, once through the
+   kernel and once with the model's attention rebound to the plain
+   version: last-position logits within SERVE_LOGITS_ATOL and all greedy
+   tokens equal. The bfloat16 run is repeated with the plain version and
+   the first step where the tokens differ is reported (not checked).
+
+Phase 3 times every kernel at the shapes the main paths gave it (BigCrush
+for the battery kernels, phase 6 for flash attention).
 
 Any failure raises, and the script exits non-zero without a result line.
 The last three lines are the kernels' JSON, the card, and
 ``{"ok": true, "device": {...}}``.
 """
+import dataclasses
 import json
 import math
 import os
@@ -41,6 +59,7 @@ sys.path.insert(0, os.path.join(ROOT, "tests"))
 # H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12       # float32 outside the tensor cores
+TENSOR_BF16_FLOPS = 989e12     # bf16 / fp16 tensor cores
 
 HIST_PARITY = [(1 << 26, 4), (1 << 24, 22), (1 << 24, 4096),
                (1 << 26, 65536), (1 << 26, 1 << 20)]
@@ -51,6 +70,26 @@ MAIN_ARGS = [
     ("smallcrush", ["--battery", "smallcrush", "--gen", "splitmix64,randu",
                     "--scale", "0.0625", "--seed", "7", "--adaptive"]),
 ]
+# (B, S, H, K, dh, softcap, dtype): the reference suite's four shapes
+# (tests/test_kernels.py), the serving shapes in bfloat16 and in float32
+# (the float32 cases hold the 4- and 16-tile kv loop at dh 128 to 2e-5),
+# one padded length
+FA_PARITY = [(2, 256, 4, 2, 64, 0.0, "float32"),
+             (1, 384, 2, 2, 128, 50.0, "float32"),
+             (1, 128, 8, 1, 64, 0.0, "float32"),
+             (2, 256, 4, 4, 64, 0.0, "bfloat16"),
+             (4, 512, 12, 2, 128, 0.0, "bfloat16"),
+             (2, 2048, 12, 2, 128, 0.0, "bfloat16"),
+             (4, 512, 12, 2, 128, 0.0, "float32"),
+             (2, 2048, 12, 2, 128, 0.0, "float32"),
+             (1, 200, 12, 2, 128, 0.0, "bfloat16")]
+FA_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# (batch, prompt length, generated tokens) of the serve phase
+SERVE = [(4, 512, 64), (2, 2048, 16)]
+# float32 serve parity, kernel vs plain: last-position logits are O(1)
+# (random weights, scale 0.02); float32 rounding of two summation orders
+# through 28 layers stays far below this
+SERVE_LOGITS_ATOL = 1e-3
 GOLDEN = os.path.join(ROOT, "src", "repro_torch", "golden",
                       "smallcrush_splitmix64_randu_s7_x0.0625_adaptive.json")
 
@@ -78,10 +117,10 @@ def median_ms(fn, reps=25, warmup=3):
     return statistics.median(times)
 
 
-def bound_ms(n_bytes, n_ops):
+def bound_ms(n_bytes, n_ops, ops_per_s=SCALAR_OPS_PER_S):
     """Least time for the work: bytes over HBM rate vs ops over peak."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / SCALAR_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -132,6 +171,127 @@ def rank_case(m, seed=0):
             "ms": median_ms(lambda: gf2_rank(mats)),
             "plain_ms": median_ms(lambda: gf2_rank_ref(words)),
             "library_ms": None, "bound_ms": bound, "bound_by": by}
+
+
+def fa_case(b, s, h, kh, dh, cap, dtype, seed=0):
+    """Check the flash-attention kernel against its plain version at
+    q (B, S, H, dh), k/v (B, S, K, dh), and time both and the library
+    call. ``ops.mha`` pads S to a multiple of 128; the kernel call is
+    timed through it, as the model calls it."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import mha
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn((b, s, n, dh), generator=g, device="cuda").to(dt)
+               for n in (h, kh, kh))
+    scale = dh ** -0.5
+    got = mha(q, k, v, scale=scale, softcap=cap)
+    want = mha_ref(q, k, v, scale=scale, softcap=cap)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"flash_attention {b}x{s}: shape or non-finite output")
+    err = float((got.float() - want.float()).abs().max())
+    check(err <= FA_ATOL[dtype], f"flash_attention B{b} S{s} H{h} K{kh} "
+          f"dh{dh} cap{cap} {dtype}: max |kernel - plain| {err} > "
+          f"{FA_ATOL[dtype]}")
+    # unmasked (query, key) pairs of the causal mask, on the real length;
+    # QK^T and PV each take 2 * dh operations per pair
+    esize = torch.finfo(dt).bits // 8
+    n_ops = 4 * dh * b * h * s * (s + 1) // 2
+    n_bytes = esize * dh * b * (2 * s * h + 2 * s * kh)
+    peak = SCALAR_OPS_PER_S if dt == torch.float32 else TENSOR_BF16_FLOPS
+    bound, by = bound_ms(n_bytes, n_ops, peak)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    library = None
+    if not cap:
+        library = median_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True))
+    return {"b": b, "s": s, "h": h, "kh": kh, "dh": dh, "softcap": cap,
+            "dtype": dtype, "max_abs_err": err, "atol": FA_ATOL[dtype],
+            "ms": median_ms(lambda: mha(q, k, v, scale=scale, softcap=cap)),
+            "plain_ms": median_ms(lambda: mha_ref(q, k, v, scale=scale,
+                                                  softcap=cap)),
+            "library_ms": library, "bound_ms": bound, "bound_by": by,
+            "peak_ops_per_s": peak}
+
+
+def greedy(params, prompts, cfg, gen_len):
+    """One batch of greedy requests: prefill, then argmax -> decode_step.
+    Returns the prefill's last-position logits, the (B, gen_len) tokens
+    (the first from the prefill) and the prefill and decode seconds."""
+    import torch
+    from repro_torch.models.decode import decode_step, prefill
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, prompts, cfg,
+                            max_seq=prompts.shape[1] + gen_len)
+    first = logits.float()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    tok = logits.argmax(-1, keepdim=True)
+    toks = [tok]
+    for _ in range(gen_len - 1):
+        logits, cache = decode_step(params, cache, tok, cfg)
+        tok = logits.argmax(-1, keepdim=True)
+        toks.append(tok)
+    out = torch.cat(toks, dim=1)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    check(bool(torch.isfinite(first).all())
+          and bool(torch.isfinite(logits.float()).all()),
+          "serve: non-finite logits")
+    check(first.shape == (prompts.shape[0], cfg.padded_vocab),
+          f"serve: logits shape {tuple(first.shape)}")
+    return first, out, t1 - t0, t2 - t1
+
+
+def device_busy(fn):
+    """Device busy ms of one call of ``fn`` (sum of its kernels' device
+    time under torch.profiler; one stream, so they do not overlap) and
+    the five kernels that took the most."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    return {"busy_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+            "kernels": sum(e.count for e in kernels),
+            "top": [(e.key[:60], e.count, e.self_device_time_total / 1e3)
+                    for e in kernels[:5]]}
+
+
+def prompts_for(cfg, batch, length, seed):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randint(0, cfg.vocab_size, (batch, length), generator=g,
+                         device="cuda")
+
+
+def _kernel_fns():
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.gf2_rank.kernel import gf2_rank
+    from repro_torch.kernels.histogram.kernel import histogram
+    return {"histogram": histogram, "gf2_rank": gf2_rank,
+            "flash_attention": flash_attention}
+
+
+def zero_counts():
+    """Set every kernel's launch count to 0 (just before a path runs)."""
+    for fn in _kernel_fns().values():
+        fn.launches = 0
+        fn.calls.clear()
+
+
+def launch_counts():
+    return {name: fn.launches for name, fn in _kernel_fns().items()}
 
 
 def run_cli(name, args, backend):
@@ -214,7 +374,9 @@ def main():
     from repro_torch.kernels.histogram.kernel import histogram
     hist_parity = [hist_case(n, k) for n, k in HIST_PARITY]
     rank_parity = [rank_case(m) for m in RANK_PARITY]
-    details["parity"] = {"histogram": hist_parity, "gf2_rank": rank_parity}
+    fa_parity = [fa_case(*shape) for shape in FA_PARITY]
+    details["parity"] = {"histogram": hist_parity, "gf2_rank": rank_parity,
+                         "flash_attention": fa_parity}
     for c in hist_parity:
         print(f"[kernels] histogram N={c['n']} k={c['nbins']}: bitwise | "
               f"kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
@@ -224,21 +386,26 @@ def main():
         print(f"[kernels] gf2_rank M={c['m']}: bitwise | kernel "
               f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
               f"bound {c['bound_ms']:.4f} ms", flush=True)
+    for c in fa_parity:
+        lib = ("none (softcap)" if c["library_ms"] is None
+               else f"{c['library_ms']:.4f} ms")
+        print(f"[kernels] flash_attention B{c['b']} S{c['s']} H{c['h']} "
+              f"K{c['kh']} dh{c['dh']} cap{c['softcap']} {c['dtype']}: max "
+              f"err {c['max_abs_err']:.3g} <= {c['atol']} | kernel "
+              f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, sdpa {lib}, "
+              f"bound {c['bound_ms']:.4f} ms", flush=True)
 
     # 4. main path, accelerated
     from test_torch_reference import ATOL, RTOL, p_tolerance
     from repro_torch.core.battery import build_battery
     accel, calls = {}, {}
     for name, args in MAIN_ARGS:
-        histogram.launches, gf2_rank.launches = 0, 0
-        histogram.calls.clear()
-        gf2_rank.calls.clear()
+        zero_counts()
         rep = run_cli(name, args, "accelerated")
-        launches = {"histogram": histogram.launches,
-                    "gf2_rank": gf2_rank.launches}
+        launches = launch_counts()
         calls[name] = {"histogram": dict(histogram.calls),
                        "gf2_rank": dict(gf2_rank.calls)}
-        check(all(launches.values()),
+        check(launches["histogram"] and launches["gf2_rank"],
               f"{name}: a kernel was not launched on the main path "
               f"{launches}")
         verdicts = {g: r["verdict"] for g, r in rep["runs"].items()}
@@ -267,9 +434,9 @@ def main():
 
     # 5. the same runs with the plain versions
     for name, args in MAIN_ARGS:
-        histogram.launches, gf2_rank.launches = 0, 0
+        zero_counts()
         rep = run_cli(name, args, "reference")
-        check(histogram.launches == 0 and gf2_rank.launches == 0,
+        check(not any(launch_counts().values()),
               f"{name}/reference launched a kernel")
         compare_runs(accel[name], rep, f"{name} accelerated vs reference",
                      lambda a, b: ATOL + RTOL * abs(b["p"]))
@@ -290,21 +457,150 @@ def main():
           f"{walls['accelerated']} s, reference {walls['reference']} s",
           flush=True)
 
-    # the kernels at the shapes the BigCrush run gave them
+    # 6. serve: qwen2-1.5b at full width, bfloat16 compute
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.lm import init_params
+    flash = _kernel_fns()["flash_attention"]
+    cfg = get_config("qwen2-1.5b")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    print(f"[serve] qwen2-1.5b at full width ({cfg.n_layers}L d"
+          f"{cfg.d_model} {cfg.n_heads}H/{cfg.n_kv_heads}kv dh"
+          f"{cfg.head_dim_} ff{cfg.d_ff} vocab {cfg.vocab_size}): "
+          f"{cfg.n_params()} {cfg.param_dtype} parameters from seed 0 on "
+          f"cuda in {time.perf_counter() - t0:.2f}s, compute "
+          f"{cfg.compute_dtype}", flush=True)
+    serve_runs, fa_calls, serve_launches = [], {}, 0
+    for i, (batch, plen, gen) in enumerate(SERVE):
+        prompts = prompts_for(cfg, batch, plen, seed=i)
+        greedy(params, prompts, cfg, 2)          # warm-up at this shape
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        first, toks, t_pre, t_dec = greedy(params, prompts, cfg, gen)
+        launches = launch_counts()
+        check(launches["flash_attention"] == cfg.n_layers,
+              f"serve {batch}x{plen}: {launches['flash_attention']} "
+              f"flash-attention launches, want {cfg.n_layers} per prefill")
+        for key, c in flash.calls.items():
+            fa_calls[key] = fa_calls.get(key, 0) + c
+        serve_launches += launches["flash_attention"]
+        run = {"batch": batch, "prompt_len": plen, "gen_len": gen,
+               "prefill_ms": t_pre * 1e3,
+               "decode_ms_per_step": t_dec * 1e3 / (gen - 1),
+               "tokens_per_s": batch * gen / (t_pre + t_dec),
+               "prefill_tokens_per_s": batch * plen / t_pre,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "launches": launches, "tokens": toks.tolist()}
+        serve_runs.append(run)
+        print(f"[serve] {batch} x {plen}-token prompts, {gen} greedy tokens "
+              f"each: prefill {run['prefill_ms']:.2f} ms, decode "
+              f"{run['decode_ms_per_step']:.3f} ms/token (one per request "
+              f"per step), {run['tokens_per_s']:.1f} generated tokens/s, "
+              f"max_memory_allocated {run['max_memory_allocated']} B, "
+              f"flash_attention launches {launches['flash_attention']}",
+              flush=True)
+        if i == 0:
+            bf16_prompts, bf16_first, bf16_tokens = prompts, first, toks
+    details["serve"] = serve_runs
+
+    # where the serve time goes: one profiled prefill and decode step at
+    # the first shape; the idle share is against the unprofiled times
+    from repro_torch.models.decode import decode_step, prefill
+    run = serve_runs[0]
+    state = {}
+
+    def prof_prefill():
+        state["out"] = prefill(params, bf16_prompts, cfg,
+                               max_seq=run["prompt_len"] + 2)
+    pre = device_busy(prof_prefill)
+    logits, cache = state["out"]
+    dec = device_busy(lambda: decode_step(
+        params, cache, logits.argmax(-1, keepdim=True), cfg))
+    for what, rec, wall in (("prefill", pre, run["prefill_ms"]),
+                            ("decode step", dec, run["decode_ms_per_step"])):
+        rec["idle_share"] = (max(0.0, 1 - rec["busy_ms"] / wall)
+                             if rec["busy_ms"] else None)
+        top = ", ".join(f"{k} x{c} {t:.2f} ms" for k, c, t in rec["top"][:3])
+        idle = ("not measured" if rec["idle_share"] is None
+                else f"{rec['idle_share']:.1%}")
+        print(f"[serve] profile of one {what} at {run['batch']} x "
+              f"{run['prompt_len']}: device busy {rec['busy_ms']:.2f} ms of "
+              f"{wall:.2f} ms (idle share {idle}), {rec['kernels']} kernels; "
+              f"top: {top}", flush=True)
+    details["serve_profile"] = {"prefill": pre, "decode_step": dec}
+    del state, logits, cache
+
+    # 7. serve parity: float32 compute, kernel vs plain attention
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: float32 parity needs full float32")
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    gen = SERVE[0][2]
+    zero_counts()
+    k_first, k_toks, _, _ = greedy(params, bf16_prompts, cfg32, gen)
+    check(launch_counts()["flash_attention"] == cfg.n_layers,
+          "float32 serve did not go through the kernel")
+    kernel_mha = attn_mod.mha
+    attn_mod.mha = mha_ref
+    try:
+        zero_counts()
+        p_first, p_toks, _, _ = greedy(params, bf16_prompts, cfg32, gen)
+        pb_first, pb_toks, _, _ = greedy(params, bf16_prompts, cfg, gen)
+        check(launch_counts()["flash_attention"] == 0,
+              "the plain serve run launched the kernel")
+    finally:
+        attn_mod.mha = kernel_mha
+    logit_err = float((k_first - p_first).abs().max())
+    check(logit_err <= SERVE_LOGITS_ATOL,
+          f"float32 serve: last-position logits kernel vs plain differ by "
+          f"{logit_err} > {SERVE_LOGITS_ATOL}")
+    check(torch.equal(k_toks, p_toks),
+          "float32 serve: greedy tokens differ between kernel and plain")
+    differ = (bf16_tokens != pb_toks).any(dim=0).nonzero()
+    bf16_first_diff = int(differ[0]) if len(differ) else None
+    bf16_err = float((bf16_first - pb_first).abs().max())
+    details["serve_parity"] = {
+        "float32_logits_max_abs_err": logit_err, "atol": SERVE_LOGITS_ATOL,
+        "float32_tokens_equal": True,
+        "bfloat16_logits_max_abs_err": bf16_err,
+        "bfloat16_first_differing_step": bf16_first_diff}
+    print(f"[serve parity] float32, {k_toks.shape[0]} x {k_toks.shape[1]} "
+          f"greedy tokens: equal with the kernel and the plain version; "
+          f"last-position logits max |diff| {logit_err:.3g} <= "
+          f"{SERVE_LOGITS_ATOL} | bfloat16 kernel vs plain: logits max "
+          f"|diff| {bf16_err:.3g}, tokens "
+          + ("all equal" if bf16_first_diff is None else
+             f"first differ at step {bf16_first_diff} (reported, not "
+             f"checked)"), flush=True)
+    del params
+
+    # the kernels at the shapes their main paths gave them
     main_calls = calls["bigcrush"]
     shapes = {"histogram": [hist_case(n, k, seed=1) | {"launches": c}
                             for (n, k), c in main_calls["histogram"].items()],
               "gf2_rank": [rank_case(m, seed=1) | {"launches": c}
-                           for m, c in main_calls["gf2_rank"].items()]}
+                           for m, c in main_calls["gf2_rank"].items()],
+              "flash_attention": [
+                  fa_case(b, s, h, kh, dh, 0.0, dt.split(".")[-1], seed=1)
+                  | {"launches": c}
+                  for (b, s, t, h, kh, dh, dt), c in fa_calls.items()]}
     details["main_path_shapes"] = shapes
     details["main_path"] = {n: {k: r[k] for k in ("_wall_s", "_words",
                                                   "_launches", "rounds_run")}
                             for n, r in accel.items()}
+    main_launches = {"histogram": accel["bigcrush"]["_launches"]["histogram"],
+                     "gf2_rank": accel["bigcrush"]["_launches"]["gf2_rank"],
+                     "flash_attention": serve_launches}
     rows = []
     meta = {"histogram": ("src/repro_torch/kernels/histogram/histogram.cu",
                           "src/repro/kernels/histogram/kernel.py:39"),
             "gf2_rank": ("src/repro_torch/kernels/gf2_rank/gf2_rank.cu",
-                         "src/repro/kernels/gf2_rank/kernel.py:61")}
+                         "src/repro/kernels/gf2_rank/kernel.py:61"),
+            "flash_attention": (
+                "src/repro_torch/kernels/flash_attention/flash_attention.cu",
+                "src/repro/kernels/flash_attention/kernel.py:80")}
     for name, cases in shapes.items():
         def total(key):
             if any(c[key] is None for c in cases):
@@ -315,7 +611,7 @@ def main():
         rows.append({
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1],
-            "launches": accel["bigcrush"]["_launches"][name],
+            "launches": main_launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in
                                cases + details["parity"][name]),
             "ms": total("ms"), "plain_ms": total("plain_ms"),

@@ -1,2 +1,2 @@
-"""Shared helpers: 32/64-bit unsigned arithmetic on int64 tensors and
-device resolution."""
+"""Shared helpers: 32/64-bit unsigned arithmetic on int64 tensors, device
+resolution and the LM stack's model configuration."""

@@ -1,0 +1,57 @@
+"""Model configuration of the LM serving path (from the reference's
+``repro/common/config.py``: ``pad_to`` and the fields of ``ModelConfig``
+that the port reads).
+
+The reference's other fields describe families, modalities and training
+knobs the port does not run yet (gemma2's local windows, softcaps, query
+scale and post-norms, MoE, MLA, SSM, xLSTM, whisper, remat, gradient
+accumulation); each comes back in the slice that first reads it. Until
+then a configuration that needs one cannot be written here, so none is
+silently ignored.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+
+def pad_to(x: int, multiple: int) -> int:
+    return ((x + multiple - 1) // multiple) * multiple
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    arch_id: str
+    family: str                        # dense (the only family ported)
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+
+    head_dim: Optional[int] = None     # default d_model // n_heads
+    act: str = "silu"                  # silu (SwiGLU; the only one ported)
+    qkv_bias: bool = False
+    rope: bool = True
+    rope_theta: float = 10000.0
+    tie_embeddings: bool = False
+    norm_eps: float = 1e-6
+
+    param_dtype: str = "float32"
+    compute_dtype: str = "bfloat16"
+
+    # ----- derived -----
+    @property
+    def head_dim_(self) -> int:
+        return self.head_dim if self.head_dim else self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        """Megatron-style vocab padding for clean TP sharding."""
+        return pad_to(self.vocab_size, 128)
+
+    def n_params(self) -> int:
+        """Parameter count from the port's own spec (shapes only)."""
+        from repro_torch.models.lm import count_params
+        return count_params(self)

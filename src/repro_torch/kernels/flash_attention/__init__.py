@@ -1,0 +1,2 @@
+"""Causal flash attention, forward (port of
+``repro/kernels/flash_attention``)."""

@@ -1,0 +1,37 @@
+"""Plain PyTorch version of the flash-attention kernel (port of
+``repro/kernels/flash_attention/ref.py``), and of the kernel's call in
+the ``(B, S, H, dh)`` GQA layout."""
+import torch
+
+NEG = -2.3819763e38
+
+
+def attention_ref(q, k, v, *, scale, softcap=0.0):
+    """Causal attention, the kernel's plain version. q/k/v: (BH, S, dh)
+    -> (BH, S, dh) in q's dtype, computed in fp32."""
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    qn, kn = s.shape[1], s.shape[2]
+    mask = torch.ones((qn, kn), dtype=torch.bool, device=s.device).tril()
+    s = torch.where(mask[None], s, torch.tensor(NEG, device=s.device))
+    w = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    w = w / w.sum(dim=-1, keepdim=True)
+    return torch.einsum("bqk,bkd->bqd", w, v.float()).to(q.dtype)
+
+
+def mha_ref(q, k, v, *, scale, softcap=0.0):
+    """The kernel's function in its own layout: q (B, S, H, dh), k/v
+    (B, T, K, dh) -> (B, S, H, dh). Repeats the kv heads and folds the
+    heads into the batch, as the reference wrapper does, then calls
+    ``attention_ref``."""
+    b, s, h, dh = q.shape
+    kh = k.shape[2]
+    if kh != h:
+        k = k.repeat_interleave(h // kh, dim=2)
+        v = v.repeat_interleave(h // kh, dim=2)
+    qf = q.transpose(1, 2).reshape(b * h, s, dh)
+    kf = k.transpose(1, 2).reshape(b * h, k.shape[1], dh)
+    vf = v.transpose(1, 2).reshape(b * h, v.shape[1], dh)
+    o = attention_ref(qf, kf, vf, scale=scale, softcap=softcap)
+    return o.reshape(b, h, s, dh).transpose(1, 2)

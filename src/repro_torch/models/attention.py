@@ -1,0 +1,110 @@
+"""GQA attention: projections, full-sequence causal attention and
+one-token decode (port of the GQA half of ``repro/models/attention.py``).
+
+Full-sequence causal global attention goes through
+``kernels.flash_attention.ops.mha`` on every device: the hand-written
+CUDA kernel for CUDA tensors, its plain version on the CPU. The
+reference computes the same function with its dense or blocked XLA path
+(``sdpa``), whose TPU-hardware twin is the Pallas kernel that the CUDA
+kernel ports. Local windows, bidirectional and cross attention and MLA
+have no configuration in the port yet and raise (ROADMAP.md, queue 1).
+
+Decode attention is plain torch over the cache, as the reference
+computes it outside any kernel. It writes the new k/v into the cache in
+place, where the reference returns new arrays.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.flash_attention.ops import mha
+from repro_torch.models.common import apply_rope, rope_angles
+from repro_torch.models.params import P
+
+
+def spec_attention(cfg):
+    d, h, k, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    spec = {
+        "wq": P((d, h, dh), ("embed", "heads", "head_dim")),
+        "wk": P((d, k, dh), ("embed", "kv_heads", "head_dim")),
+        "wv": P((d, k, dh), ("embed", "kv_heads", "head_dim")),
+        "wo": P((h, dh, d), ("heads", "head_dim", "embed")),
+    }
+    if cfg.qkv_bias:
+        spec["bq"] = P((h, dh), ("heads", "head_dim"), init="zeros")
+        spec["bk"] = P((k, dh), ("kv_heads", "head_dim"), init="zeros")
+        spec["bv"] = P((k, dh), ("kv_heads", "head_dim"), init="zeros")
+    return spec
+
+
+def _project_qkv(p, x, cfg):
+    """x: (B, S, D) -> q (B, S, H, dh), k and v (B, S, K, dh)."""
+    q = torch.einsum("bsd,dhe->bshe", x, p["wq"].to(x.dtype))
+    k = torch.einsum("bsd,dke->bske", x, p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dke->bske", x, p["wv"].to(x.dtype))
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+        k = k + p["bk"].to(x.dtype)
+        v = v + p["bv"].to(x.dtype)
+    return q, k, v
+
+
+def _scale(cfg):
+    return cfg.head_dim_ ** -0.5
+
+
+def attention(p, x, cfg, *, kind="global", mode="causal", positions=None,
+              kv_x=None, kv_positions=None, return_kv=False):
+    """Full-sequence causal attention (prefill / forward). x: (B, S, D).
+    Returns y (B, S, D), and (k, v) after rope when ``return_kv``."""
+    if (kind != "global" or mode != "causal" or kv_x is not None
+            or positions is not None or kv_positions is not None):
+        raise NotImplementedError(
+            f"attention kind={kind!r} mode={mode!r} (cross, custom "
+            f"positions) is not ported yet: only causal global attention "
+            f"is (see ROADMAP.md, queue 1)")
+    b, s, _ = x.shape
+    q, k, v = _project_qkv(p, x, cfg)
+    if cfg.rope:
+        cos, sin = rope_angles(torch.arange(s, device=x.device),
+                               cfg.head_dim_, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    out = mha(q, k, v, scale=_scale(cfg))
+    y = torch.einsum("bshe,hed->bsd", out, p["wo"].to(x.dtype))
+    if return_kv:
+        return y, (k, v)
+    return y
+
+
+def attention_decode(p, x, cache_k, cache_v, pos, cfg, *, kind="global"):
+    """One-token decode. x: (B, 1, D); cache: (B, S_max, K, dh); pos: the
+    int position of the new token. Writes its k/v into the cache at
+    ``pos`` in place and attends over positions ``0..pos``. Returns
+    (y, cache_k, cache_v)."""
+    if kind != "global":
+        raise NotImplementedError(f"decode attention kind={kind!r} is not "
+                                  f"ported yet (see ROADMAP.md, queue 1)")
+    b = x.shape[0]
+    q, k, v = _project_qkv(p, x, cfg)
+    if cfg.rope:
+        cos, sin = rope_angles(torch.full((1,), pos, device=x.device),
+                               cfg.head_dim_, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+    cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
+    cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
+    # the reference scores all S_max positions and masks those after pos
+    # with a value whose weights are exactly 0; scoring 0..pos alone is
+    # the same sum
+    ck, cv = cache_k[:, :pos + 1], cache_v[:, :pos + 1]
+    kh = cache_k.shape[2]
+    g = cfg.n_heads // kh
+    qg = q.reshape(b, 1, kh, g, cfg.head_dim_)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(),
+                          ck.to(q.dtype).float()) * _scale(cfg)
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", w, cv.to(q.dtype))
+    out = out.reshape(b, 1, cfg.n_heads, cfg.head_dim_)
+    y = torch.einsum("bshe,hed->bsd", out, p["wo"].to(x.dtype))
+    return y, cache_k, cache_v

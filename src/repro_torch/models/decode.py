@@ -1,0 +1,51 @@
+"""Prefill and single-token decode, dense family (port of
+``repro/models/decode.py``).
+
+``prefill(params, tokens, cfg, max_seq)`` runs the full-sequence forward
+while filling the decode cache. ``decode_step(params, cache, token, cfg)``
+writes one token's k/v into the cache in place (the reference returns a
+new cache) and returns the cache with ``pos`` advanced. A greedy request
+is ``prefill``, then ``argmax`` -> ``decode_step`` per generated token.
+"""
+from __future__ import annotations
+
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.common import apply_norm
+from repro_torch.models.lm import (_lm_logits, apply_attn_block, embed,
+                                   init_cache, unit)
+from repro_torch.models.mlp import mlp
+
+
+def prefill(params, tokens, cfg, max_seq=None):
+    """tokens: (B, S) int -> (last-position logits (B, V_padded), cache
+    with k/v for positions 0..S-1, zeros after, ``pos`` = S)."""
+    b, s = tokens.shape
+    max_seq = max_seq or s
+    cache = init_cache(cfg, b, max_seq, device=tokens.device)
+    ck, cv = cache["units"]["blk"]["k"], cache["units"]["blk"]["v"]
+    x = embed(params, tokens, cfg)
+    for i in range(cfg.n_layers):
+        x, (k, v) = apply_attn_block(unit(params["units"], i)["blk"], x, cfg)
+        ck[i, :, :s] = k
+        cv[i, :, :s] = v
+    cache["pos"] = s
+    xl = apply_norm(params["final_norm"], x[:, -1:], cfg)
+    return _lm_logits(params, xl, cfg)[:, 0], cache
+
+
+def decode_step(params, cache, token, cfg):
+    """token: (B, 1) int. Returns (logits (B, V_padded), cache): the same
+    cache, written in place at ``pos``, with ``pos`` advanced by one."""
+    pos = cache["pos"]
+    x = embed(params, token, cfg)
+    ck, cv = cache["units"]["blk"]["k"], cache["units"]["blk"]["v"]
+    for i in range(cfg.n_layers):
+        p = unit(params["units"], i)["blk"]
+        h, _, _ = attn_mod.attention_decode(
+            p["attn"], apply_norm(p["pre_attn"], x, cfg), ck[i], cv[i], pos,
+            cfg)
+        x = x + h
+        x = x + mlp(p["mlp"], apply_norm(p["pre_mlp"], x, cfg), cfg)
+    cache["pos"] = pos + 1
+    xl = apply_norm(params["final_norm"], x, cfg)
+    return _lm_logits(params, xl, cfg)[:, 0], cache
