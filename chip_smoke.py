@@ -7,16 +7,24 @@ Phases, one line each (details in ``reports/chip_smoke/chip_smoke.json``):
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the three CUDA kernels compiled from the checkout for sm_90a,
-   one nvcc each, started together;
+   one nvcc each, started together; the flash-attention library's SASS
+   must hold tensor-core (HGMMA) instructions;
 3. kernels: the histogram and GF(2)-rank kernels against their plain
    PyTorch versions on the card, bitwise, at the parity shapes below; the
    flash-attention kernel against its plain version at the reference
-   suite's shapes, the serving shapes (bfloat16 and float32) and one
-   padded length, within the
-   reference suite's tolerances (2e-5 float32, 2e-2 bfloat16);
+   suite's shapes, the serving shapes (bfloat16 and float32), one padded
+   length and the tensor-core route's softcap and MQA dh-64 cases, within
+   the reference suite's tolerances (2e-5 float32, 2e-2 bfloat16); the
+   tensor-core route also row by row against its own arithmetic emulated
+   in float32 (``tests/test_torch_flash.py``: P in bfloat16), each row
+   within WGMMA_ROW_RTOL of its largest value;
    CUDA-event medians of each kernel, its plain version and the library
    yardstick (``torch.bincount``, ``scaled_dot_product_attention``; timed
-   here, used nowhere in the port);
+   here, used nowhere in the port); at the bfloat16 tensor-core shapes
+   also the CUDA-core route on the same inputs (checked and timed, not
+   counted). Flash attention, sdpa and the CUDA-core route also get a
+   device time per call (``device_ms``: calls queued behind a sleep
+   kernel, so the host's launch work is hidden);
 4. main path: ``repro_torch.launch.battery`` on cuda with
    ``--backend accelerated``: BigCrush at scale 1.0 and the adaptive
    SmallCrush acceptance run, splitmix64 + randu. Launch counts are zeroed
@@ -28,7 +36,9 @@ Phases, one line each (details in ``reports/chip_smoke/chip_smoke.json``):
 6. serve: qwen2-1.5b at full width on cuda, weights from seed 0, bfloat16
    compute: 4 requests of 512-token prompts with 64 greedy tokens each,
    then 2 of 2048 tokens with 16 each; 28 flash-attention launches per
-   prefill;
+   prefill, every one on the tensor-core (``wgmma``) route; then one
+   profiled prefill at each shape and one decode step (device busy time,
+   idle share, flash attention's device time, the top kernels);
 7. serve parity: the 4 x 512 requests in float32 compute, once through the
    kernel and once with the model's attention rebound to the plain
    version: last-position logits within SERVE_LOGITS_ATOL and all greedy
@@ -72,8 +82,9 @@ MAIN_ARGS = [
 ]
 # (B, S, H, K, dh, softcap, dtype): the reference suite's four shapes
 # (tests/test_kernels.py), the serving shapes in bfloat16 and in float32
-# (the float32 cases hold the 4- and 16-tile kv loop at dh 128 to 2e-5),
-# one padded length
+# (the float32 cases hold the CUDA-core route's 4- and 16-tile kv loop at
+# dh 128 to 2e-5), one padded length, and the tensor-core route's softcap
+# and MQA dh-64 cases
 FA_PARITY = [(2, 256, 4, 2, 64, 0.0, "float32"),
              (1, 384, 2, 2, 128, 50.0, "float32"),
              (1, 128, 8, 1, 64, 0.0, "float32"),
@@ -82,7 +93,9 @@ FA_PARITY = [(2, 256, 4, 2, 64, 0.0, "float32"),
              (2, 2048, 12, 2, 128, 0.0, "bfloat16"),
              (4, 512, 12, 2, 128, 0.0, "float32"),
              (2, 2048, 12, 2, 128, 0.0, "float32"),
-             (1, 200, 12, 2, 128, 0.0, "bfloat16")]
+             (1, 200, 12, 2, 128, 0.0, "bfloat16"),
+             (1, 384, 2, 2, 128, 50.0, "bfloat16"),
+             (1, 128, 8, 1, 64, 0.0, "bfloat16")]
 FA_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
 # (batch, prompt length, generated tokens) of the serve phase
 SERVE = [(4, 512, 64), (2, 2048, 16)]
@@ -114,6 +127,33 @@ def median_ms(fn, reps=25, warmup=3):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def device_ms(fn, n=20, reps=5):
+    """Device time per call of ``fn``, in ms: ``n`` calls enqueued back to
+    back behind a sleep kernel, so that the device runs them without
+    waiting for the host; CUDA events around the ``n`` calls, median over
+    ``reps``. A sleep that ends before the host has enqueued the calls is
+    doubled and the run repeated."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times, cycles = [], 20_000_000
+    while len(times) < reps:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(n):
+            fn()
+        b.record()
+        if a.query():            # the device reached a: it waited on us
+            cycles *= 2
+            torch.cuda.synchronize()
+            continue
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
     return statistics.median(times)
 
 
@@ -173,13 +213,28 @@ def rank_case(m, seed=0):
             "library_ms": None, "bound_ms": bound, "bound_by": by}
 
 
+def simt_attention(q, k, v, scale, softcap):
+    """The CUDA-core flash-attention route on the same inputs, launched
+    uncounted (``kernel._call``, not through the launcher): the yardstick
+    of the tensor-core route at its own shapes. S a multiple of 128."""
+    from repro_torch.kernels.flash_attention import kernel as fk
+    rc, o = fk._call("simt", q, k, v, scale, softcap)
+    check(rc == 0, f"flash_attention simt route: CUDA error {rc}")
+    return o
+
+
 def fa_case(b, s, h, kh, dh, cap, dtype, seed=0):
     """Check the flash-attention kernel against its plain version at
     q (B, S, H, dh), k/v (B, S, K, dh), and time both and the library
     call. ``ops.mha`` pads S to a multiple of 128; the kernel call is
-    timed through it, as the model calls it."""
+    timed through it, as the model calls it. Where the tensor-core route
+    takes the shape (S a multiple of 128), its output is also held, row by
+    row, against its own arithmetic emulated in float32, and the CUDA-core
+    route is checked and timed on the same inputs."""
     import torch
     import torch.nn.functional as F
+    from test_torch_flash import WGMMA_ROW_RTOL, row_rel_err, wgmma_emulation
+    from repro_torch.kernels.flash_attention.kernel import route
     from repro_torch.kernels.flash_attention.ops import mha
     from repro_torch.kernels.flash_attention.ref import mha_ref
     dt = getattr(torch, dtype)
@@ -204,17 +259,63 @@ def fa_case(b, s, h, kh, dh, cap, dtype, seed=0):
     peak = SCALAR_OPS_PER_S if dt == torch.float32 else TENSOR_BF16_FLOPS
     bound, by = bound_ms(n_bytes, n_ops, peak)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    library = None
+    def kernel():
+        return mha(q, k, v, scale=scale, softcap=cap)
+
+    def library():
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True)
+    times = {"device_ms": device_ms(kernel), "library_ms": None,
+             "library_device_ms": None}
     if not cap:
-        library = median_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True))
+        times["library_ms"] = median_ms(library)
+        times["library_device_ms"] = device_ms(library)
+    kind = route(dt, dh)
+    if kind == "wgmma" and s % 128 == 0:
+        same = wgmma_emulation(q, k, v, scale=scale, softcap=cap)
+        times["row_rel_err"] = row_rel_err(got, same)
+        times["plain_row_rel_err"] = row_rel_err(got, want)
+        times["row_rtol"] = WGMMA_ROW_RTOL
+        check(times["row_rel_err"] <= WGMMA_ROW_RTOL, f"flash_attention "
+              f"B{b} S{s} H{h} K{kh} dh{dh} cap{cap}: row-relative error "
+              f"against its arithmetic {times['row_rel_err']} > "
+              f"{WGMMA_ROW_RTOL}")
+        del same
+        old = simt_attention(q, k, v, scale, cap)
+        torch.cuda.synchronize()
+        times["simt_err"] = float((old.float() - want.float()).abs().max())
+        check(times["simt_err"] <= FA_ATOL[dtype], f"flash_attention simt "
+              f"B{b} S{s}: max |kernel - plain| {times['simt_err']}")
+        times["simt_ms"] = median_ms(
+            lambda: simt_attention(q, k, v, scale, cap))
+        times["simt_device_ms"] = device_ms(
+            lambda: simt_attention(q, k, v, scale, cap))
     return {"b": b, "s": s, "h": h, "kh": kh, "dh": dh, "softcap": cap,
-            "dtype": dtype, "max_abs_err": err, "atol": FA_ATOL[dtype],
-            "ms": median_ms(lambda: mha(q, k, v, scale=scale, softcap=cap)),
+            "dtype": dtype, "route": kind, **times,
+            "max_abs_err": err, "atol": FA_ATOL[dtype],
+            "ms": median_ms(kernel),
             "plain_ms": median_ms(lambda: mha_ref(q, k, v, scale=scale,
                                                   softcap=cap)),
-            "library_ms": library, "bound_ms": bound, "bound_by": by,
-            "peak_ops_per_s": peak}
+            "bound_ms": bound, "bound_by": by, "peak_ops_per_s": peak}
+
+
+def print_fa(c):
+    """One ``[kernels]`` line: per-call times (CUDA events around one call,
+    the host's launch work included), then device times per call."""
+    lib = ("none (softcap)" if c["library_ms"] is None
+           else f"{c['library_ms']:.4f} ms (device "
+                f"{c['library_device_ms']:.4f})")
+    simt = (f", row err vs its arithmetic {c['row_rel_err']:.3g} <= "
+            f"{c['row_rtol']:.3g} (vs plain {c['plain_row_rel_err']:.3g}), "
+            f"simt route {c['simt_ms']:.4f} ms (device "
+            f"{c['simt_device_ms']:.4f}, err {c['simt_err']:.3g})"
+            if "simt_ms" in c else "")
+    print(f"[kernels] flash_attention B{c['b']} S{c['s']} H{c['h']} "
+          f"K{c['kh']} dh{c['dh']} cap{c['softcap']} {c['dtype']} "
+          f"({c['route']}): max err {c['max_abs_err']:.3g} <= {c['atol']} | "
+          f"kernel {c['ms']:.4f} ms (device {c['device_ms']:.4f}), plain "
+          f"{c['plain_ms']:.4f} ms, sdpa {lib}, bound {c['bound_ms']:.4f} ms "
+          f"({c['bound_by']}){simt}", flush=True)
 
 
 def greedy(params, prompts, cfg, gen_len):
@@ -249,8 +350,9 @@ def greedy(params, prompts, cfg, gen_len):
 
 def device_busy(fn):
     """Device busy ms of one call of ``fn`` (sum of its kernels' device
-    time under torch.profiler; one stream, so they do not overlap) and
-    the five kernels that took the most."""
+    time under torch.profiler; one stream, so they do not overlap), the
+    flash-attention kernels' share of it (both routes: ``fa_wgmma``,
+    ``fa_fwd``) and the five kernels that took the most."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -263,6 +365,8 @@ def device_busy(fn):
                if e.device_type == DeviceType.CUDA]
     kernels.sort(key=lambda e: -e.self_device_time_total)
     return {"busy_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+            "flash_ms": sum(e.self_device_time_total for e in kernels
+                            if "fa_wgmma" in e.key or "fa_fwd" in e.key) / 1e3,
             "kernels": sum(e.count for e in kernels),
             "top": [(e.key[:60], e.count, e.self_device_time_total / 1e3)
                     for e in kernels[:5]]}
@@ -366,8 +470,18 @@ def main():
           flush=True)
     for name, info in built.items():
         for line in info["ptxas"].splitlines():
-            if "registers" in line or "smem" in line:
+            if "registers" in line or "smem" in line or "spill" in line:
                 print(f"  ptxas[{name}] {line.strip()}")
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(build.nvcc()), "cuobjdump"),
+         "--dump-sass", str(build.library_path("flash_attention"))],
+        capture_output=True, text=True, timeout=300, check=True).stdout
+    hgmma = sum("HGMMA" in line for line in sass.splitlines())
+    details["flash_attention_hgmma"] = hgmma
+    check(hgmma > 0, "the flash-attention library holds no HGMMA "
+                     "(tensor-core) instruction")
+    print(f"[build] flash_attention SASS: {hgmma} HGMMA (wgmma) "
+          f"instructions", flush=True)
 
     # 3. kernels at their parity shapes
     from repro_torch.kernels.gf2_rank.kernel import gf2_rank
@@ -387,13 +501,7 @@ def main():
               f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
               f"bound {c['bound_ms']:.4f} ms", flush=True)
     for c in fa_parity:
-        lib = ("none (softcap)" if c["library_ms"] is None
-               else f"{c['library_ms']:.4f} ms")
-        print(f"[kernels] flash_attention B{c['b']} S{c['s']} H{c['h']} "
-              f"K{c['kh']} dh{c['dh']} cap{c['softcap']} {c['dtype']}: max "
-              f"err {c['max_abs_err']:.3g} <= {c['atol']} | kernel "
-              f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, sdpa {lib}, "
-              f"bound {c['bound_ms']:.4f} ms", flush=True)
+        print_fa(c)
 
     # 4. main path, accelerated
     from test_torch_reference import ATOL, RTOL, p_tolerance
@@ -473,7 +581,8 @@ def main():
           f"{cfg.n_params()} {cfg.param_dtype} parameters from seed 0 on "
           f"cuda in {time.perf_counter() - t0:.2f}s, compute "
           f"{cfg.compute_dtype}", flush=True)
-    serve_runs, fa_calls, serve_launches = [], {}, 0
+    serve_runs, serve_prompts, fa_calls = [], [], {}
+    serve_launches, routes = 0, {}
     for i, (batch, plen, gen) in enumerate(SERVE):
         prompts = prompts_for(cfg, batch, plen, seed=i)
         greedy(params, prompts, cfg, 2)          # warm-up at this shape
@@ -484,8 +593,14 @@ def main():
         check(launches["flash_attention"] == cfg.n_layers,
               f"serve {batch}x{plen}: {launches['flash_attention']} "
               f"flash-attention launches, want {cfg.n_layers} per prefill")
+        run_routes = {}
         for key, c in flash.calls.items():
             fa_calls[key] = fa_calls.get(key, 0) + c
+            run_routes[key[-1]] = run_routes.get(key[-1], 0) + c
+            routes[key[-1]] = routes.get(key[-1], 0) + c
+        check(run_routes == {"wgmma": cfg.n_layers},
+              f"serve {batch}x{plen}: flash-attention launches by route "
+              f"{run_routes}, want all {cfg.n_layers} on wgmma")
         serve_launches += launches["flash_attention"]
         run = {"batch": batch, "prompt_len": plen, "gen_len": gen,
                "prefill_ms": t_pre * 1e3,
@@ -493,34 +608,43 @@ def main():
                "tokens_per_s": batch * gen / (t_pre + t_dec),
                "prefill_tokens_per_s": batch * plen / t_pre,
                "max_memory_allocated": torch.cuda.max_memory_allocated(),
-               "launches": launches, "tokens": toks.tolist()}
+               "launches": launches, "routes": run_routes,
+               "tokens": toks.tolist()}
         serve_runs.append(run)
+        serve_prompts.append(prompts)
         print(f"[serve] {batch} x {plen}-token prompts, {gen} greedy tokens "
               f"each: prefill {run['prefill_ms']:.2f} ms, decode "
               f"{run['decode_ms_per_step']:.3f} ms/token (one per request "
               f"per step), {run['tokens_per_s']:.1f} generated tokens/s, "
               f"max_memory_allocated {run['max_memory_allocated']} B, "
-              f"flash_attention launches {launches['flash_attention']}",
-              flush=True)
+              f"flash_attention launches {launches['flash_attention']} "
+              f"by route {run_routes}", flush=True)
         if i == 0:
             bf16_prompts, bf16_first, bf16_tokens = prompts, first, toks
     details["serve"] = serve_runs
+    print(f"[serve] flash_attention launches of the serve phase by route: "
+          f"{routes} ({serve_launches} in all)", flush=True)
 
-    # where the serve time goes: one profiled prefill and decode step at
-    # the first shape; the idle share is against the unprofiled times
+    # where the serve time goes: one profiled prefill at each shape and one
+    # decode step at the first; the idle share is against the unprofiled
+    # times
     from repro_torch.models.decode import decode_step, prefill
-    run = serve_runs[0]
-    state = {}
-
-    def prof_prefill():
-        state["out"] = prefill(params, bf16_prompts, cfg,
-                               max_seq=run["prompt_len"] + 2)
-    pre = device_busy(prof_prefill)
-    logits, cache = state["out"]
-    dec = device_busy(lambda: decode_step(
-        params, cache, logits.argmax(-1, keepdim=True), cfg))
-    for what, rec, wall in (("prefill", pre, run["prefill_ms"]),
-                            ("decode step", dec, run["decode_ms_per_step"])):
+    state, profiles = {}, []
+    for i, (run, prompts) in enumerate(zip(serve_runs, serve_prompts)):
+        def prof_prefill():
+            state["out"] = prefill(params, prompts, cfg,
+                                   max_seq=run["prompt_len"] + 2)
+        profiles.append(("prefill", run, device_busy(prof_prefill),
+                         run["prefill_ms"]))
+        if i == 0:
+            logits, cache = state["out"]
+            profiles.append(("decode step", run, device_busy(
+                lambda: decode_step(params, cache,
+                                    logits.argmax(-1, keepdim=True), cfg)),
+                run["decode_ms_per_step"]))
+            del logits, cache
+    del state
+    for what, run, rec, wall in profiles:
         rec["idle_share"] = (max(0.0, 1 - rec["busy_ms"] / wall)
                              if rec["busy_ms"] else None)
         top = ", ".join(f"{k} x{c} {t:.2f} ms" for k, c, t in rec["top"][:3])
@@ -528,10 +652,12 @@ def main():
                 else f"{rec['idle_share']:.1%}")
         print(f"[serve] profile of one {what} at {run['batch']} x "
               f"{run['prompt_len']}: device busy {rec['busy_ms']:.2f} ms of "
-              f"{wall:.2f} ms (idle share {idle}), {rec['kernels']} kernels; "
-              f"top: {top}", flush=True)
-    details["serve_profile"] = {"prefill": pre, "decode_step": dec}
-    del state, logits, cache
+              f"{wall:.2f} ms (idle share {idle}), {rec['kernels']} kernels, "
+              f"flash attention {rec['flash_ms']:.2f} ms; top: {top}",
+              flush=True)
+    details["serve_profile"] = {
+        f"{what} {run['batch']}x{run['prompt_len']}": rec
+        for what, run, rec, _ in profiles}
 
     # 7. serve parity: float32 compute, kernel vs plain attention
     check(not torch.backends.cuda.matmul.allow_tf32,
@@ -585,7 +711,9 @@ def main():
               "flash_attention": [
                   fa_case(b, s, h, kh, dh, 0.0, dt.split(".")[-1], seed=1)
                   | {"launches": c}
-                  for (b, s, t, h, kh, dh, dt), c in fa_calls.items()]}
+                  for (b, s, t, h, kh, dh, dt, _), c in fa_calls.items()]}
+    for c in shapes["flash_attention"]:
+        print_fa(c)
     details["main_path_shapes"] = shapes
     details["main_path"] = {n: {k: r[k] for k in ("_wall_s", "_words",
                                                   "_launches", "rounds_run")}
@@ -599,7 +727,7 @@ def main():
             "gf2_rank": ("src/repro_torch/kernels/gf2_rank/gf2_rank.cu",
                          "src/repro/kernels/gf2_rank/kernel.py:61"),
             "flash_attention": (
-                "src/repro_torch/kernels/flash_attention/flash_attention.cu",
+                "src/repro_torch/kernels/flash_attention/fa_hopper.cuh",
                 "src/repro/kernels/flash_attention/kernel.py:80")}
     for name, cases in shapes.items():
         def total(key):

@@ -1,13 +1,14 @@
 """Build and load the port's CUDA kernels.
 
-Each kernel is one ``.cu`` file with a plain C entry point, compiled by
-``nvcc`` for ``sm_90a`` into its own shared library and called through
-``ctypes`` (no PyTorch headers: such a build takes seconds, where one
-that includes ``torch/extension.h`` takes minutes). Builds happen at
-first use on the card, never at import, into ``_build/`` beside this
-file; the library name carries a hash of the source and flags, so an
-edited source rebuilds. ``build`` starts one ``nvcc`` per source, all at
-once.
+Each kernel is one ``.cu`` file (and the ``.cuh`` headers beside it
+that it includes) with plain C entry points, compiled by ``nvcc`` for
+``sm_90a`` into its own shared library and called through ``ctypes`` (no
+PyTorch headers: such a build takes seconds, where one that includes
+``torch/extension.h`` takes minutes). Builds happen at first use on the
+card, never at import, into ``_build/`` beside this file; the library
+name carries a hash of the kernel directory's sources and the flags, so
+an edited source or header rebuilds. ``build`` starts one ``nvcc`` per
+kernel, all at once.
 """
 from __future__ import annotations
 
@@ -46,8 +47,14 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where kernel ``name``'s shared library is built."""
-    h = hashlib.sha256(SOURCES[name].read_bytes())
+    """Where kernel ``name``'s shared library is built: the name carries a
+    hash of every ``*.cu`` and ``*.cuh`` in the kernel's directory (names
+    and contents, in sorted order) and of the flags, so an edit to an
+    included header rebuilds too."""
+    h = hashlib.sha256()
+    src_dir = SOURCES[name].parent
+    for path in sorted([*src_dir.glob("*.cu"), *src_dir.glob("*.cuh")]):
+        h.update(path.name.encode() + b"\0" + path.read_bytes() + b"\0")
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 

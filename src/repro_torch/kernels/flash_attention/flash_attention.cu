@@ -1,4 +1,9 @@
-// Causal flash attention, forward, for Hopper (sm_90a).
+// Causal flash attention, forward, for Hopper (sm_90a): the CUDA-core
+// route. The launcher (kernel.py) takes it for float32 and for bfloat16
+// at head dims other than 64 and 128; bfloat16 at 64 and 128 takes the
+// tensor-core route of fa_hopper.cuh (entry repro_flash_attention_wgmma
+// at the end of this file). Tensor cores would compute float32 only in
+// TF32, which cannot hold the float32 tolerance of 2e-5.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (_fa_kernel / flash_attention) together with the GQA repeat and the
@@ -39,12 +44,15 @@
 // Bound: at prefill shapes the work is operations. Causal attention does
 // about 2 * B * H * S^2 * dh FLOPs (QK^T and PV, halved by the mask)
 // against 2 * (B*S*H + 2*B*T*KH) * dh * bytes-per-element of traffic.
-// This first version does its dot products on the CUDA cores in float32
-// (67 TFLOP/s at most, where bf16 tensor cores give 989): mma/wgmma, TMA
-// and warp specialization are later work.
+// This route does its dot products on the CUDA cores in float32
+// (67 TFLOP/s at most, where bf16 tensor cores give 989); fa_hopper.cuh
+// is the bfloat16 route on the tensor cores.
 #include <cstdint>
+#include <initializer_list>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "fa_hopper.cuh"
 
 namespace {
 
@@ -269,4 +277,31 @@ extern "C" int repro_flash_attention(
     case 1: return launch_dh<__nv_bfloat16>(a, B, s);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// The tensor-core route: the same arguments and contract as
+// repro_flash_attention, for dtype 1 (bfloat16) and dh 64 or 128 only,
+// with 16-byte aligned q, k, v and strides that are multiples of 8
+// elements (TMA's 16-byte rule). cudaErrorInvalidValue otherwise, and when
+// a tensor map cannot be encoded.
+extern "C" int repro_flash_attention_wgmma(
+    int dtype, const void* q, const void* k, const void* v, void* o, int B,
+    int S, int T, int H, int KH, int dh, long long qsb, long long qss,
+    long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
+    long long vss, long long vsh, float scale, float softcap, void* stream) {
+  if (dtype != 1 || B <= 0 || S % 128 || T % 128 || S <= 0 || T <= 0 ||
+      KH <= 0 || H % KH || (dh != 64 && dh != 128))
+    return cudaErrorInvalidValue;
+  for (const void* ptr : {q, k, v})
+    if (reinterpret_cast<uintptr_t>(ptr) % 16) return cudaErrorInvalidValue;
+  for (long long st : {qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh})
+    if (st % 8) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return dh == 64
+             ? fa_hopper::launch<64>(q, k, v, o, B, S, T, H, KH, qsb, qss, qsh,
+                                     ksb, kss, ksh, vsb, vss, vsh, scale,
+                                     softcap, s)
+             : fa_hopper::launch<128>(q, k, v, o, B, S, T, H, KH, qsb, qss,
+                                      qsh, ksb, kss, ksh, vsb, vss, vsh, scale,
+                                      softcap, s);
 }

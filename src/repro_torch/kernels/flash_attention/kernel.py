@@ -4,9 +4,15 @@
 Replaces the Pallas kernel ``src/repro/kernels/flash_attention/kernel.py``
 (``flash_attention``), with the GQA grouping and head layout of its
 wrapper folded in: the kernel reads q in ``(B, S, H, dh)`` and k/v in
-``(B, T, K, dh)`` through their strides. ``flash_attention.launches``
-counts launches and ``flash_attention.calls`` counts them by
-``(B, S, T, H, K, dh, dtype)``; nothing else touches either.
+``(B, T, K, dh)`` through their strides.
+
+Two routes, chosen by dtype and head dim before launch (``route``):
+``"wgmma"``, the tensor-core kernel of ``fa_hopper.cuh``, for bfloat16
+at head dims 64 and 128; ``"simt"``, the CUDA-core kernel, for float32
+(tensor cores would round it to TF32) and for bfloat16 at other head
+dims. ``flash_attention.launches`` counts launches and
+``flash_attention.calls`` counts them by
+``(B, S, T, H, K, dh, dtype, route)``; nothing else touches either.
 """
 from __future__ import annotations
 
@@ -22,11 +28,21 @@ from repro_torch.kernels import build
 BLOCK = 128
 MAX_HEAD_DIM = 128
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+WGMMA_HEAD_DIMS = (64, 128)
+_SYMBOLS = {"wgmma": "repro_flash_attention_wgmma",
+            "simt": "repro_flash_attention"}
+
+
+def route(dtype: torch.dtype, dh: int) -> str:
+    """The kernel that takes a call: ``"wgmma"`` for bfloat16 at head
+    dims 64 and 128, ``"simt"`` otherwise."""
+    return ("wgmma" if dtype == torch.bfloat16 and dh in WGMMA_HEAD_DIMS
+            else "simt")
 
 
 @functools.lru_cache(maxsize=None)
-def _entry():
-    fn = build.load("flash_attention").repro_flash_attention
+def _entry(kind: str):
+    fn = getattr(build.load("flash_attention"), _SYMBOLS[kind])
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
                    + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
@@ -34,21 +50,41 @@ def _entry():
     return fn
 
 
+def _call(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+          scale: float, softcap: float):
+    """Launch route ``kind`` on inputs that ``flash_attention`` has
+    checked, on q's current stream, uncounted -> (CUDA error code, o)."""
+    b, s, h, dh = q.shape
+    strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
+    o = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device)
+    with torch.cuda.device(q.device):
+        rc = _entry(kind)(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+                          v.data_ptr(), o.data_ptr(), b, s, k.shape[1], h,
+                          k.shape[2], dh, *strides, float(scale),
+                          float(softcap),
+                          torch.cuda.current_stream(q.device).cuda_stream)
+    return rc, o
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float, softcap: float = 0.0) -> torch.Tensor:
     """Causal attention. q: (B, S, H, dh), k/v: (B, T, K, dh) CUDA
     tensors, all float32 or all bfloat16, H % K == 0, S and T multiples
     of BLOCK, dh <= 128, each with a contiguous last dim -> o: contiguous
-    (B, S, H, dh) in q's dtype."""
+    (B, S, H, dh) in q's dtype. On the ``wgmma`` route the tensors must
+    also start on 16 bytes and have strides of whole 16 bytes (TMA)."""
+    strides = []
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in DTYPES or t.dtype != q.dtype:
             raise TypeError(f"flash_attention kernel needs q, k, v of one "
                             f"of {sorted(map(str, DTYPES))}, got {name} "
                             f"{t.dtype} with q {q.dtype}")
-        if t.dim() != 4 or t.stride(-1) != 1:
+        st = t.stride()
+        if len(st) != 4 or st[3] != 1:
             raise ValueError(f"flash_attention kernel needs 4-d {name} with "
                              f"a contiguous last dim, got {tuple(t.shape)} "
-                             f"strides {t.stride()}")
+                             f"strides {st}")
+        strides += st[:3]
     b, s, h, dh = q.shape
     t_len, kh = k.shape[1], k.shape[2]
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != dh:
@@ -66,18 +102,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"flash_attention kernel needs q, k, v on one CUDA "
                          f"device, got {q.device}, {k.device}, {v.device}")
-    o = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device)
-    with torch.cuda.device(q.device):
-        rc = _entry()(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
-                      v.data_ptr(), o.data_ptr(), b, s, t_len, h, kh, dh,
-                      *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-                      float(scale), float(softcap),
-                      torch.cuda.current_stream(q.device).cuda_stream)
+    kind = route(q.dtype, dh)
+    # TMA: 16-byte aligned starts; bf16 strides of whole 16 bytes
+    if kind == "wgmma" and (any(t.data_ptr() % 16 for t in (q, k, v))
+                            or any(st % 8 for st in strides)):
+        raise ValueError(f"the tensor-core route needs q, k, v on a 16-byte "
+                         f"boundary with strides of whole 16 bytes, got "
+                         f"strides {q.stride()}, {k.stride()}, {v.stride()}")
+    rc, o = _call(kind, q, k, v, scale, softcap)
     if rc:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA "
-                           f"error {rc}")
+        raise RuntimeError(f"flash_attention kernel ({kind}) launch failed: "
+                           f"CUDA error {rc}")
     flash_attention.launches += 1
-    flash_attention.calls[(b, s, t_len, h, kh, dh, str(q.dtype))] += 1
+    flash_attention.calls[(b, s, t_len, h, kh, dh, str(q.dtype), kind)] += 1
     return o
 
 

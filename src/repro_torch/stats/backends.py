@@ -17,7 +17,11 @@ version for a CPU tensor, so the accelerated families also run (and are
 tested) on the CPU.
 
 Backend names: ``reference``, ``accelerated``, and ``auto``, which is
-``accelerated`` on a CUDA device and ``reference`` elsewhere.
+``accelerated`` on a CUDA device of compute capability 9.0 (Hopper, the
+only target the kernels are built for: ``sm_90a``) and ``reference``
+elsewhere, as the reference resolves ``auto`` to its kernels only on a
+TPU. An explicit ``accelerated`` on another card is kept as asked, and
+fails when the kernels build or launch.
 """
 from __future__ import annotations
 
@@ -50,16 +54,23 @@ def register(kname: str, backend: str, fn: Callable) -> None:
     _REGISTRY.setdefault(kname, {})[backend] = fn
 
 
+# compute capability the kernels are built for (kernels/build.py: sm_90a)
+KERNEL_CAPABILITY = (9, 0)
+
+
 def resolve(backend: str,
             device: Optional[Union[str, torch.device]] = "cuda") -> str:
     """Map a backend name to a concrete one; ``auto`` is ``accelerated``
-    on a CUDA device."""
+    only on a CUDA device of compute capability ``KERNEL_CAPABILITY``."""
     if backend not in BACKENDS:
         raise KeyError(f"unknown backend {backend!r}; known: {BACKENDS}")
     if backend != "auto":
         return backend
-    return ("accelerated" if torch.device(device).type == "cuda"
-            else "reference")
+    device = torch.device(device)
+    if (device.type == "cuda" and tuple(torch.cuda.get_device_capability(
+            device)) == KERNEL_CAPABILITY):
+        return "accelerated"
+    return "reference"
 
 
 def get_kernel(kname: str, backend: str = "reference",

@@ -15,11 +15,13 @@ import sys
 import numpy as np
 import pytest
 import torch
+from scipy.stats import chi2
 
 from test_cli_json import PER_GEN_KEYS, RUN_KEYS, TEST_KEYS
-from test_torch_reference import REPO, assert_stat_p, run_reference
+from test_torch_reference import (REPO, assert_stat_p, combined_tolerance,
+                                  p_tolerance, run_reference)
 
-from repro_torch.core import pool
+from repro_torch.core import pool, stitch
 from repro_torch.core.api import PoolSession, RunSpec
 from repro_torch.core.battery import (build_battery, entries_from_reference,
                                       split_entry)
@@ -37,6 +39,24 @@ POOL = {"battery": "smallcrush", "scale": 0.0625,
         "policy": "over_decompose", "backend": "reference"}
 CLI_ARGS = ["--battery", "smallcrush", "--gen", "splitmix64,randu",
             "--scale", "0.0625", "--seed", "7", "--adaptive"]
+# over-decomposed CLI runs (``--policy over_decompose``) at x0.0625, each
+# with the family it must split and the verdicts: smallcrush splits
+# coupon_d8_n4096 into two Stouffer-combined parts (under 60 s here);
+# bigcrush splits the serial2d_*_n8192 tests, whose parts' p-values carry
+# the reference's float32 gamma rounding (about 2 min here, most of it the
+# reference's run)
+SPLIT_CASES = {"smallcrush": ("coupon", {"splitmix64": "PASS",
+                                         "randu": "FAIL"}),
+               "bigcrush": ("serial2d", {"splitmix64": "FAIL",
+                                         "randu": "FAIL"})}
+SPLIT_GENS = ["splitmix64", "randu"]
+
+
+def _split_args(battery):
+    return ["--battery", battery, "--gen", ",".join(SPLIT_GENS), "--scale",
+            "0.0625", "--seed", "7", "--policy", "over_decompose"]
+
+
 GOLDEN = os.path.join(REPO, "src", "repro_torch", "golden",
                       "smallcrush_splitmix64_randu_s7_x0.0625_adaptive.json")
 
@@ -173,6 +193,132 @@ def test_battery_cli_matches_reference(ref, tmp_path):
                               (t["stat"], t["p"]), f"{gen} {t['name']}")
     assert got["runs"]["splitmix64"]["verdict"] == "PASS"
     assert got["runs"]["randu"]["verdict"] == "FAIL"
+
+
+def _ref_split(tmp_path_factory, battery):
+    """The reference's over-decomposed CLI run of ``battery`` and, from a
+    pool run of the same spec, its per-part (job) results."""
+    d = tmp_path_factory.mktemp(f"ref_split_{battery}")
+    cli_json = str(d / "cli.json")
+    pool_res, cli_res = run_reference(
+        [{"kind": "pool", "battery": battery, "scale": 0.0625,
+          "generators": SPLIT_GENS, "seeds": [7], "policy": "over_decompose",
+          "backend": "auto"},
+         {"kind": "cli", "argv": _split_args(battery) + ["--json", cli_json]}],
+        str(d / "out"))
+    with open(cli_json) as f:
+        cli_res["json"] = json.load(f)
+    return {"battery": battery, "pool": pool_res, "cli": cli_res}
+
+
+@pytest.fixture(scope="module")
+def ref_split(tmp_path_factory):
+    return _ref_split(tmp_path_factory, "smallcrush")
+
+
+@pytest.fixture(scope="module")
+def ref_split_bigcrush(tmp_path_factory):
+    return _ref_split(tmp_path_factory, "bigcrush")
+
+
+def _check_over_decomposed(ref_split, tmp_path):
+    """The port's CLI under ``--policy over_decompose`` against the
+    reference CLI: same verdicts, rounds, checked tests and exit code;
+    every unsplit test's (stat, p) within ``assert_stat_p``, and every
+    combined (stat, p) of a split test within ``combined_tolerance`` of
+    its parts (the reference's part results, Stouffer)."""
+    battery = ref_split["battery"]
+    family, verdicts = SPLIT_CASES[battery]
+    want = ref_split["cli"]["json"]
+    pool_res = ref_split["pool"]
+    path = str(tmp_path / "port.json")
+    code = cli.main(_split_args(battery) + ["--device", "cpu", "--json",
+                                            path])
+    with open(path) as f:
+        got = json.load(f)
+    assert code == ref_split["cli"]["exit_code"]
+    for key in RUN_KEYS - {"wall_s", "runs"}:
+        assert got[key] == want[key], key
+    jobs = [dict(zip(("index", "name", "kname", "params", "n_words", "cost",
+                      "group", "part", "n_parts"), row[:9]))
+            for row in pool_res["jobs"]]
+    split = {j["group"] for j in jobs if j["n_parts"] > 1}
+    assert any(j["kname"] == family for j in jobs if j["n_parts"] > 1), \
+        f"over_decompose split no {family} test"
+    entries = _by_index(build_battery(battery, 0.0625, device="cpu"))
+    n_combined = 0
+    for g, gen in enumerate(SPLIT_GENS):
+        run, exp = got["runs"][gen], want["runs"][gen]
+        assert pool_res["verdicts"][gen] == exp["verdict"]
+        for key in PER_GEN_KEYS - {"tests"}:
+            assert run[key] == exp[key], (gen, key)
+        for t, te in zip(run["tests"], exp["tests"]):
+            assert (t["index"], t["name"], t["suspect"]) == \
+                   (te["index"], te["name"], te["suspect"])
+            assert (t["p"] is None) == (te["p"] is None)
+            if te["p"] is None:
+                continue
+            if t["index"] not in split:
+                e = entries[t["index"]]
+                assert_stat_p(e.kname, dict(e.params), (te["stat"], te["p"]),
+                              (t["stat"], t["p"]), f"{gen} {t['name']}")
+                continue
+            parts = [(j["kname"], dict(map(tuple, j["params"])),
+                      *pool_res["job_results"][g][str(j["index"])])
+                     for j in jobs if j["group"] == t["index"]]
+            assert len(parts) > 1
+            # the pool run's parts fold to the reference CLI's value
+            ref_stat, ref_p = stitch.combine_stouffer([p for *_, p in parts])
+            assert (ref_stat, ref_p) == pytest.approx((te["stat"], te["p"]),
+                                                      rel=1e-12, abs=1e-15)
+            stat_tol, p_tol = combined_tolerance(stitch.combine_stouffer,
+                                                 parts)
+            assert abs(t["stat"] - te["stat"]) <= stat_tol, (gen, t, te)
+            assert abs(t["p"] - te["p"]) <= p_tol, (gen, t, te)
+            n_combined += 1
+    assert n_combined >= len(SPLIT_GENS)
+    assert {gen: got["runs"][gen]["verdict"] for gen in SPLIT_GENS} == verdicts
+
+
+def test_over_decomposed_cli_matches_reference(ref_split, tmp_path):
+    """smallcrush x0.0625, which splits coupon_d8_n4096: see
+    ``_check_over_decomposed``."""
+    _check_over_decomposed(ref_split, tmp_path)
+
+
+def test_over_decomposed_bigcrush_matches_reference(ref_split_bigcrush,
+                                                    tmp_path):
+    """bigcrush x0.0625, which splits the serial2d_*_n8192 tests (4095
+    degrees of freedom at d=64, the widest gamma tolerance): every
+    Stouffer-combined serial2d (stat, p) within ``combined_tolerance``
+    (``_check_over_decomposed``)."""
+    _check_over_decomposed(ref_split_bigcrush, tmp_path)
+
+
+@pytest.mark.parametrize("combine", ["stouffer", "fisher"])
+def test_combined_tolerance_bounds_its_parts(combine):
+    """``combined_tolerance`` holds every combination of parts that each
+    lie within their own p tolerance, at serial2d d=64 (4095 degrees of
+    freedom, the widest gamma tolerance) and at coupon. At serial2d it
+    is wider than the bare contract (rtol 1e-5): the widening the
+    over-decomposed parity case needs comes from the parts."""
+    fn = stitch.COMBINERS[combine]
+    rng = np.random.default_rng(11)
+    for kname, params, dof in (("serial2d", {"n": 8192, "d": 64}, 4095),
+                               ("coupon", {"n": 4096, "d": 8}, 29)):
+        for n_parts in (2, 4):
+            parts = [(kname, params, float(x), float(chi2.sf(x, dof)))
+                     for x in rng.chisquare(dof, n_parts)]
+            ps = np.array([p for *_, p in parts])
+            tol = np.array([p_tolerance(*part) for part in parts])
+            s0, p0 = fn(ps)
+            stat_tol, p_tol = combined_tolerance(fn, parts)
+            for _ in range(200):
+                s, p = fn(np.clip(ps + rng.uniform(-1, 1, n_parts) * tol,
+                                  0.0, 1.0))
+                assert abs(s - s0) <= stat_tol and abs(p - p0) <= p_tol
+            if kname == "serial2d":
+                assert stat_tol > 1e-3 * abs(s0) and p_tol > 1e-4
 
 
 def test_golden_is_the_reference_cli_output(ref):

@@ -109,6 +109,36 @@ def test_wrappers_validate_inputs():
     assert (hk.histogram.launches, gk.gf2_rank.launches) == launches
 
 
+def test_build_hash_covers_every_kernel_source(monkeypatch, tmp_path):
+    """A kernel's library path hashes every ``*.cu`` and ``*.cuh`` of its
+    directory and the flags: editing an included header, adding a
+    header or changing a flag gives a new library; a file of another
+    kind or another kernel's directory does not."""
+    from repro_torch.kernels import build
+    src = tmp_path / "k"
+    src.mkdir()
+    (src / "k.cu").write_text('#include "tile.cuh"\n')
+    (src / "tile.cuh").write_text("// v1\n")
+    (tmp_path / "other").mkdir()
+    monkeypatch.setattr(build, "KERNEL_DIR", tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "_build")
+    monkeypatch.setattr(build, "SOURCES", {"k": src / "k.cu"})
+    first = build.library_path("k")
+    assert first.parent == tmp_path / "_build" and first.name.startswith("k-")
+    assert build.library_path("k") == first
+    (src / "notes.txt").write_text("not a source")
+    (tmp_path / "other" / "x.cuh").write_text("// elsewhere")
+    assert build.library_path("k") == first
+    (src / "tile.cuh").write_text("// v2\n")
+    edited = build.library_path("k")
+    assert edited != first
+    (src / "more.cuh").write_text("// new header\n")
+    added = build.library_path("k")
+    assert added not in (first, edited)
+    monkeypatch.setattr(build, "NVCC_FLAGS", build.NVCC_FLAGS + ("-G",))
+    assert build.library_path("k") not in (first, edited, added)
+
+
 def test_histogram_ref_drops_out_of_range_bins():
     idx = torch.tensor([0, 1, 1, 5, 9], dtype=torch.int32)
     np.testing.assert_array_equal(histogram_ref(idx, 3).numpy(), [1, 2, 0])

@@ -107,6 +107,33 @@ def p_tolerance(kname: str, params: dict, stat: float, p: float) -> float:
     return gamma_tolerance(ga[0], ga[1], p)
 
 
+def combined_tolerance(combine, parts) -> tuple:
+    """``(stat_tol, p_tol)``: absolute tolerances on the combined
+    ``(stat, p)`` of an over-decomposed test, derived from its parts'
+    reference results ``parts = [(kname, params, stat, p), ...]`` and the
+    port's combiner ``combine(ps) -> (stat, p)`` (``stitch.combine_stouffer``
+    or ``stitch.combine_fisher``).
+
+    Each part's p may differ from the reference's by its ``p_tolerance``
+    (``gamma_tolerance`` where the p is an incomplete gamma). Both
+    combiners are monotone in every part's p: Stouffer's Z and Fisher's
+    ``-2 sum ln p`` fall as a part's p rises, and the combined p rises as
+    the statistic falls. So for parts within those bounds, the combined
+    stat and p lie between their values with every part at its lower
+    bound and with every part at its upper bound. The tolerance is the
+    larger distance from the reference's combined value to those two,
+    plus the contract (atol 1e-7 + rtol 1e-5) for the combiner's own
+    rounding. It widens the contract only as far as the parts' own
+    tolerances carry through the combiner."""
+    ps = np.array([p for _, _, _, p in parts], np.float64)
+    tol = np.array([p_tolerance(k, prm, s, p) for k, prm, s, p in parts])
+    s0, p0 = combine(ps)
+    ends = [combine(np.clip(ps - tol, 0.0, 1.0)),
+            combine(np.clip(ps + tol, 0.0, 1.0))]
+    return (ATOL + RTOL * abs(s0) + max(abs(s - s0) for s, _ in ends),
+            ATOL + RTOL * abs(p0) + max(abs(p - p0) for _, p in ends))
+
+
 def assert_stat_p(kname, params, ref, got, what="", stat_atol=ATOL):
     """(stat, p) parity: stat within the contract (rtol 1e-5, atol
     ``stat_atol``), p within ``p_tolerance``."""

@@ -108,17 +108,45 @@ def test_family_matches_reference(ref, kname, backend):
                           stat_atol=_stat_atol(kname, params, words))
 
 
-def test_backends_registry():
+def test_backends_registry(monkeypatch):
     accelerated = [k for k in sorted(TB.T.KERNELS)
                    if TB.get_kernel(k, "accelerated")
                    is not TB.get_kernel(k, "reference")]
     assert accelerated == ["collision", "gap", "poker", "rank", "serial2d",
                            "weight"]
+    monkeypatch.setattr(torch.cuda, "get_device_capability",
+                        lambda device=None: (9, 0))
     assert TB.resolve("auto", "cuda") == "accelerated"
     assert TB.resolve("auto", "cpu") == "reference"
     assert TB.get_kernel("coupon", "accelerated") is TB.get_kernel("coupon")
     with pytest.raises(KeyError):
         TB.resolve("fast")
+
+
+@pytest.mark.parametrize("device,capability,want", [
+    ("cuda", (9, 0), "accelerated"),      # Hopper: the kernels' sm_90a
+    ("cuda:1", (9, 0), "accelerated"),
+    ("cuda", (8, 0), "reference"),        # Ampere: sm_90a does not run
+    ("cuda", (10, 0), "reference"),
+    ("cpu", None, "reference")])
+def test_auto_backend_needs_hopper(monkeypatch, device, capability, want):
+    """``auto`` takes the kernels only on a CUDA device of compute
+    capability 9.0 (stubbed here), and never asks a CPU device for one;
+    explicit names are kept as given on any device."""
+    asked = []
+
+    def capability_of(dev=None):
+        asked.append(torch.device(dev))
+        if capability is None:
+            raise AssertionError("a CPU device has no compute capability")
+        return capability
+    monkeypatch.setattr(torch.cuda, "get_device_capability", capability_of)
+    assert TB.resolve("auto", device) == want
+    assert asked == ([] if capability is None else [torch.device(device)])
+    for name in ("reference", "accelerated"):
+        assert TB.resolve(name, device) == name
+    auto = TB.get_kernel("gap", "auto", device)
+    assert auto is TB.get_kernel("gap", want)
 
 
 def test_coupon_segments_match_a_scan():
