@@ -10,10 +10,12 @@ Phases, one line each (details in ``reports/chip_smoke/chip_smoke.json``):
    one nvcc each, started together; the flash-attention library's SASS
    must hold tensor-core (HGMMA) instructions;
 3. kernels: the histogram and GF(2)-rank kernels against their plain
-   PyTorch versions on the card, bitwise, at the parity shapes below; the
-   flash-attention kernel against its plain version at the reference
-   suite's shapes, the serving shapes (bfloat16 and float32), one padded
-   length and the tensor-core route's softcap and MQA dh-64 cases, within
+   PyTorch versions on the card, bitwise, at the parity shapes below
+   (every histogram route and its boundaries; matrices of every rank
+   0-32, through the int64 entry); the flash-attention kernel against
+   its plain version at the reference suite's shapes, the serving shapes
+   (bfloat16 and float32), one padded length and the tensor-core route's
+   softcap and MQA dh-64 cases, within
    the reference suite's tolerances (2e-5 float32, 2e-2 bfloat16); the
    tensor-core route also row by row against its own arithmetic emulated
    in float32 (``tests/test_torch_flash.py``: P in bfloat16), each row
@@ -22,17 +24,23 @@ Phases, one line each (details in ``reports/chip_smoke/chip_smoke.json``):
    yardstick (``torch.bincount``, ``scaled_dot_product_attention``; timed
    here, used nowhere in the port); at the bfloat16 tensor-core shapes
    also the CUDA-core route on the same inputs (checked and timed, not
-   counted). Flash attention, sdpa and the CUDA-core route also get a
+   counted). Every kernel, sdpa and the CUDA-core route also get a
    device time per call (``device_ms``: calls queued behind a sleep
-   kernel, so the host's launch work is hidden);
+   kernel, so the host's launch work is hidden). Integer work is
+   bounded at the INT32 rate, floating point at the float32 or bf16
+   tensor-core rate;
 4. main path: ``repro_torch.launch.battery`` on cuda with
    ``--backend accelerated``: BigCrush at scale 1.0 and the adaptive
    SmallCrush acceptance run, splitmix64 + randu. Launch counts are zeroed
-   just before each run and read just after; SmallCrush is held against
-   the reference's golden JSON (``src/repro_torch/golden``);
+   just before each run and read just after, and BigCrush's kernel shapes
+   are printed with their launches; SmallCrush is held against the
+   reference's golden JSON (``src/repro_torch/golden``);
 5. the same two runs with ``--backend reference``: same verdicts and the
    same (stat, p); then the warm wall time of BigCrush under both
-   backends, in turns;
+   backends, in turns, and one more warm accelerated BigCrush under
+   torch.profiler: kernels and device ms by name, device busy time and
+   idle share, and a check that each histogram and gf2_rank call was one
+   device kernel, none on the histogram's global-atomics route;
 6. serve: qwen2-1.5b at full width on cuda, weights from seed 0, bfloat16
    compute: 4 requests of 512-token prompts with 64 greedy tokens each,
    then 2 of 2048 tokens with 16 each; 28 flash-attention launches per
@@ -70,10 +78,24 @@ sys.path.insert(0, os.path.join(ROOT, "tests"))
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12       # float32 outside the tensor cores
 TENSOR_BF16_FLOPS = 989e12     # bf16 / fp16 tensor cores
+# integer work (the battery kernels): Hopper's SM issues INT32 on 64 of
+# its 128 lanes (NVIDIA's H100 white paper), so 132 SMs x 64 lanes x
+# 1.98 GHz (boost clock) = 16.7e12 ops/s
+INT32_OPS_PER_S = 16.7e12
+# the GF(2) elimination's work per 32x32 matrix (gf2_rank.cu): 496 row
+# pairs, a bit test and a predicated XOR each, and per row its lowest set
+# bit (negate, AND) and the rank count (compare, add)
+RANK_OPS_PER_MATRIX = 496 * 2 + 32 * 4
 
+# (N, nbins): large shapes of each route, and the route boundaries of
+# kernels/histogram/kernel.py::plan (COPY_MAX_BINS 57,344 and one more;
+# HIST_MAX_BINS 65,536; CLUSTER_MAX_BINS 2^17 and one more)
 HIST_PARITY = [(1 << 26, 4), (1 << 24, 22), (1 << 24, 4096),
-               (1 << 26, 65536), (1 << 26, 1 << 20)]
-RANK_PARITY = [256, 1 << 16, 1 << 20]
+               (1 << 26, 65536), (1 << 26, 1 << 20),
+               (1 << 24, 57344), (1 << 24, 57345), (1 << 24, 1 << 17),
+               (1 << 24, (1 << 17) + 1)]
+# M: matrix i has rank i % 33, so every M >= 33 covers ranks 0-32
+RANK_PARITY = [256, 1024, 1 << 16, 1 << 20]
 MAIN_ARGS = [
     ("bigcrush", ["--battery", "bigcrush", "--gen", "splitmix64,randu",
                   "--scale", "1.0", "--seed", "7"]),
@@ -135,7 +157,9 @@ def device_ms(fn, n=20, reps=5):
     back behind a sleep kernel, so that the device runs them without
     waiting for the host; CUDA events around the ``n`` calls, median over
     ``reps``. A sleep that ends before the host has enqueued the calls is
-    doubled and the run repeated."""
+    doubled and the run repeated; a ``fn`` that waits for the device
+    (``torch.bincount`` reads its input's maximum) never lets the queue
+    build, and raises once the sleep passes about a second."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -151,13 +175,15 @@ def device_ms(fn, n=20, reps=5):
         if a.query():            # the device reached a: it waited on us
             cycles *= 2
             torch.cuda.synchronize()
+            check(cycles < 1 << 31, "device_ms: the calls wait for the "
+                                    "device, so no device time is measured")
             continue
         b.synchronize()
         times.append(a.elapsed_time(b) / n)
     return statistics.median(times)
 
 
-def bound_ms(n_bytes, n_ops, ops_per_s=SCALAR_OPS_PER_S):
+def bound_ms(n_bytes, n_ops, ops_per_s):
     """Least time for the work: bytes over HBM rate vs ops over peak."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_ops / ops_per_s * 1e3
@@ -165,7 +191,9 @@ def bound_ms(n_bytes, n_ops, ops_per_s=SCALAR_OPS_PER_S):
 
 
 def hist_case(n, nbins, seed=0):
-    """Time and check the histogram kernel at (N, nbins)."""
+    """Check the histogram kernel at (N, nbins) against its plain version,
+    bitwise, and time both, ``torch.bincount`` and the kernel's device
+    time per call."""
     import torch
     from repro_torch.kernels.histogram.kernel import histogram
     from repro_torch.kernels.histogram.ref import histogram_ref
@@ -177,40 +205,79 @@ def hist_case(n, nbins, seed=0):
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     check(torch.equal(got, want), f"histogram N={n} k={nbins}: kernel != plain")
-    bound, by = bound_ms(4 * n + 4 * nbins, n)
+    # one increment per index
+    bound, by = bound_ms(4 * n + 4 * nbins, n, INT32_OPS_PER_S)
     return {"n": n, "nbins": nbins, "max_abs_err": err,
             "ms": median_ms(lambda: histogram(idx, nbins)),
+            "device_ms": device_ms(lambda: histogram(idx, nbins)),
             "plain_ms": median_ms(lambda: histogram_ref(idx, nbins)),
             "library_ms": median_ms(
                 lambda: torch.bincount(idx, minlength=nbins)),
             "bound_ms": bound, "bound_by": by}
 
 
-def rank_case(m, seed=0):
-    """Time and check the GF(2) rank kernel at M matrices, a quarter of
-    them rank-deficient."""
+def rank_words(m, seed=0, device="cuda"):
+    """(m, 32) int64 words of 32x32 bit matrices, matrix i of rank
+    i % 33, and those ranks: i % 33 rows with distinct leading bits
+    (independent), the others random XOR combinations of them, the 32
+    rows shuffled."""
     import torch
-    from repro_torch.common.ints import to_int32_bits
-    from repro_torch.kernels.gf2_rank.kernel import gf2_rank
+    g = torch.Generator(device=device).manual_seed(seed)
+    want = torch.arange(m, device=device) % 33
+    k = torch.arange(32, device=device)
+    low = torch.randint(0, 1 << 31, (m, 32), generator=g, device=device)
+    base = (1 << (31 - k)) | (low & ((1 << (31 - k)) - 1))
+    fixed = k[None, :] < want[:, None]     # row i is base row i
+    base = torch.where(fixed, base, 0)
+    words = torch.zeros((m, 32), dtype=torch.int64, device=device)
+    for j in range(32):
+        pick = torch.randint(0, 2, (m, 32), generator=g, device=device) == 1
+        pick = torch.where(fixed, k[None, :] == j, pick)
+        words ^= torch.where(pick, base[:, j:j + 1], 0)
+    perm = torch.argsort(torch.rand((m, 32), generator=g, device=device), 1)
+    return torch.gather(words, 1, perm), want.to(torch.int32)
+
+
+def rank_case(m, seed=0):
+    """Check the GF(2) rank kernel at M matrices of every rank 0-32, on
+    the int64 words of the main path's entry (``ops.rank32``), against
+    the plain version and the ranks built in; time the entry (``ms``,
+    ``device_ms``) and the plain version."""
+    import torch
+    from repro_torch.kernels.gf2_rank.ops import rank32
     from repro_torch.kernels.gf2_rank.ref import gf2_rank_ref
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    words = torch.randint(0, 1 << 32, (m, 32), generator=g, device="cuda",
-                          dtype=torch.int64)
-    words[::4, 16:] = words[::4, :16] ^ words[::4, 8:24]
-    words[1::4, ::3] = 0
-    mats = to_int32_bits(words)
-    got = gf2_rank(mats)
+    words, ranks = rank_words(m, seed)
+    got = rank32(words)
     want = gf2_rank_ref(words)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
+    check(torch.equal(want, ranks), f"gf2_rank M={m}: plain version != "
+                                    f"the ranks built in")
     check(torch.equal(got, want), f"gf2_rank M={m}: kernel != plain")
-    check(int(want.min()) < 30, "parity set lacks rank-deficient matrices")
-    # a bit test and an XOR per row per column step
-    bound, by = bound_ms(4 * 32 * m + 4 * m, 2 * 32 * 32 * m)
+    # int64 words read once, ranks written once; the elimination's work
+    bound, by = bound_ms(8 * 32 * m + 4 * m, RANK_OPS_PER_MATRIX * m,
+                         INT32_OPS_PER_S)
     return {"m": m, "max_abs_err": err,
-            "ms": median_ms(lambda: gf2_rank(mats)),
+            "ms": median_ms(lambda: rank32(words)),
+            "device_ms": device_ms(lambda: rank32(words)),
             "plain_ms": median_ms(lambda: gf2_rank_ref(words)),
             "library_ms": None, "bound_ms": bound, "bound_by": by}
+
+
+def print_battery(name, c):
+    """One ``[kernels]`` line of a battery kernel: per-call times (CUDA
+    events around one call), then device time per call."""
+    if name == "histogram":
+        shape = f"N={c['n']} k={c['nbins']}"
+        extra = f", torch.bincount {c['library_ms']:.4f} ms"
+    else:
+        shape, extra = f"M={c['m']}", ""
+    launches = (f" x{c['launches']} on the main path" if "launches" in c
+                else "")
+    print(f"[kernels] {name} {shape}{launches}: bitwise | kernel "
+          f"{c['ms']:.4f} ms (device {c['device_ms']:.4f}), plain "
+          f"{c['plain_ms']:.4f} ms{extra}, bound {c['bound_ms']:.4f} ms "
+          f"({c['bound_by']})", flush=True)
 
 
 def simt_attention(q, k, v, scale, softcap):
@@ -352,7 +419,8 @@ def device_busy(fn):
     """Device busy ms of one call of ``fn`` (sum of its kernels' device
     time under torch.profiler; one stream, so they do not overlap), the
     flash-attention kernels' share of it (both routes: ``fa_wgmma``,
-    ``fa_fwd``) and the five kernels that took the most."""
+    ``fa_fwd``), the count and device ms of every kernel by name, most
+    first, and the five that took the most."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -368,6 +436,8 @@ def device_busy(fn):
             "flash_ms": sum(e.self_device_time_total for e in kernels
                             if "fa_wgmma" in e.key or "fa_fwd" in e.key) / 1e3,
             "kernels": sum(e.count for e in kernels),
+            "by_name": [(e.key, e.count, e.self_device_time_total / 1e3)
+                        for e in kernels],
             "top": [(e.key[:60], e.count, e.self_device_time_total / 1e3)
                     for e in kernels[:5]]}
 
@@ -492,14 +562,9 @@ def main():
     details["parity"] = {"histogram": hist_parity, "gf2_rank": rank_parity,
                          "flash_attention": fa_parity}
     for c in hist_parity:
-        print(f"[kernels] histogram N={c['n']} k={c['nbins']}: bitwise | "
-              f"kernel {c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
-              f"torch.bincount {c['library_ms']:.4f} ms, "
-              f"bound {c['bound_ms']:.4f} ms", flush=True)
+        print_battery("histogram", c)
     for c in rank_parity:
-        print(f"[kernels] gf2_rank M={c['m']}: bitwise | kernel "
-              f"{c['ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, "
-              f"bound {c['bound_ms']:.4f} ms", flush=True)
+        print_battery("gf2_rank", c)
     for c in fa_parity:
         print_fa(c)
 
@@ -527,6 +592,9 @@ def main():
               f"{rep['_wall_s']:.2f}s, rounds {rep['rounds_run']}/"
               f"{rep['plan_rounds']}, words {rep['_words']}, launches "
               f"{launches}", flush=True)
+        print(f"[main] {name} shapes x launches: histogram (N, k) "
+              f"{sorted(calls[name]['histogram'].items())}; gf2_rank M "
+              f"{sorted(calls[name]['gf2_rank'].items())}", flush=True)
     with open(GOLDEN) as f:
         golden = json.load(f)
     entries = build_battery("smallcrush", 0.0625, device="cpu")
@@ -564,6 +632,41 @@ def main():
     print(f"[timing] bigcrush warm wall on cuda: accelerated "
           f"{walls['accelerated']} s, reference {walls['reference']} s",
           flush=True)
+
+    # one more warm accelerated BigCrush under torch.profiler: where the
+    # device time goes, and each battery kernel call is exactly one device
+    # kernel (no memset, no conversion kernel, never the histogram's
+    # global-atomics route); the idle share is against the unprofiled
+    # warm wall time
+    zero_counts()
+    prof = device_busy(lambda: run_cli("bigcrush_profiled", big,
+                                       "accelerated"))
+    launches = launch_counts()
+
+    def kernels_named(word):
+        return sum(c for key, c, _ in prof["by_name"] if word in key)
+    hist_k, hist_global = kernels_named("hist_"), kernels_named("hist_global")
+    check(hist_k == launches["histogram"] and hist_global == 0,
+          f"profiled bigcrush: {hist_k} histogram kernels ({hist_global} on "
+          f"the global route) for {launches['histogram']} calls")
+    check(kernels_named("gf2_rank32") == launches["gf2_rank"],
+          f"profiled bigcrush: {kernels_named('gf2_rank32')} gf2_rank "
+          f"kernels for {launches['gf2_rank']} calls")
+    warm = statistics.median(walls["accelerated"]) * 1e3
+    prof["wall_ms"] = warm
+    prof["idle_share"] = max(0.0, 1 - prof["busy_ms"] / warm)
+    prof["memsets"] = kernels_named("Memset")
+    prof["launches"] = launches
+    details["bigcrush_profile"] = prof
+    print(f"[profile] bigcrush warm, accelerated: {prof['kernels']} device "
+          f"kernels, device busy {prof['busy_ms']:.3f} ms of {warm:.1f} ms "
+          f"warm wall (idle share {prof['idle_share']:.1%}), memsets "
+          f"{prof['memsets']}; histogram {hist_k} kernels for "
+          f"{launches['histogram']} calls (global route {hist_global}), "
+          f"gf2_rank {kernels_named('gf2_rank32')} for "
+          f"{launches['gf2_rank']}", flush=True)
+    for key, count, ms in prof["by_name"][:12]:
+        print(f"[profile]   {ms:8.3f} ms x{count:5d}  {key[:90]}", flush=True)
 
     # 6. serve: qwen2-1.5b at full width, bfloat16 compute
     from repro_torch.configs import get_config
@@ -712,6 +815,9 @@ def main():
                   fa_case(b, s, h, kh, dh, 0.0, dt.split(".")[-1], seed=1)
                   | {"launches": c}
                   for (b, s, t, h, kh, dh, dt, _), c in fa_calls.items()]}
+    for name in ("histogram", "gf2_rank"):
+        for c in shapes[name]:
+            print_battery(name, c)
     for c in shapes["flash_attention"]:
         print_fa(c)
     details["main_path_shapes"] = shapes
@@ -742,7 +848,8 @@ def main():
             "launches": main_launches[name],
             "max_abs_err": max(c["max_abs_err"] for c in
                                cases + details["parity"][name]),
-            "ms": total("ms"), "plain_ms": total("plain_ms"),
+            "ms": total("ms"), "device_ms": total("device_ms"),
+            "plain_ms": total("plain_ms"),
             "bound_ms": total("bound_ms"),
             "bound_by": ("bytes" if bytes_bound * 2 >= total("bound_ms")
                          else "operations"),

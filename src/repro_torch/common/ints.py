@@ -51,8 +51,3 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
 def to_unit(bits: torch.Tensor) -> torch.Tensor:
     """uint32 words -> float32 in [0, 1) (``rng/generators.py:431``)."""
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
-
-
-def to_int32_bits(x: torch.Tensor) -> torch.Tensor:
-    """Words in ``[0, 2^32)`` -> int32 with the same 32-bit pattern."""
-    return (x - ((x >> 31) << 32)).to(torch.int32)

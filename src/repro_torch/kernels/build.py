@@ -90,6 +90,17 @@ def build(names: Iterable[str] = tuple(SOURCES)) -> Dict[str, dict]:
     return report
 
 
+def call_on(device, fn, *args) -> int:
+    """``fn(*args)`` with ``device`` the current CUDA device, entering its
+    context only when it is not current already (host time per launch);
+    returns what ``fn`` returns, a CUDA error code."""
+    import torch
+    if device.index == torch.cuda.current_device():
+        return fn(*args)
+    with torch.cuda.device(device):
+        return fn(*args)
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded shared library of kernel ``name``, built on first use."""
     lib = _LIBS.get(name)

@@ -28,23 +28,24 @@ def _entry():
 
 
 def gf2_rank(mats: torch.Tensor) -> torch.Tensor:
-    """(M, 32) int32 CUDA tensor of uint32 row bit patterns,
-    M % TILE_M == 0 -> (M,) int32 ranks."""
+    """(M, 32) int64 CUDA tensor of row words in [0, 2^32) (the port's
+    words), M % TILE_M == 0 -> (M,) int32 ranks."""
     if not mats.is_cuda:
         raise ValueError(f"gf2_rank kernel needs a CUDA tensor, got "
                          f"{mats.device}")
-    if mats.dtype != torch.int32 or mats.dim() != 2 or mats.shape[1] != 32:
-        raise TypeError(f"gf2_rank kernel needs (M, 32) int32, got "
+    if mats.dtype != torch.int64 or mats.dim() != 2 or mats.shape[1] != 32:
+        raise TypeError(f"gf2_rank kernel needs (M, 32) int64, got "
                         f"{tuple(mats.shape)} {mats.dtype}")
     if not mats.is_contiguous():
         raise ValueError("gf2_rank kernel needs a contiguous tensor")
     m = mats.shape[0]
     if m % TILE_M:
         raise ValueError(f"M={m} is not a multiple of TILE_M={TILE_M}")
-    ranks = torch.empty(m, dtype=torch.int32, device=mats.device)
-    with torch.cuda.device(mats.device):
-        rc = _entry()(mats.data_ptr(), m, ranks.data_ptr(),
-                      torch.cuda.current_stream(mats.device).cuda_stream)
+    dev = mats.device
+    ranks = torch.empty(m, dtype=torch.int32, device=dev)
+    args = (mats.data_ptr(), m, ranks.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(dev.index))
+    rc = build.call_on(dev, _entry(), *args)
     if rc:
         raise RuntimeError(f"gf2_rank kernel launch failed: CUDA error {rc}")
     gf2_rank.launches += 1

@@ -26,4 +26,4 @@ def bincount(idx: torch.Tensor, k: int) -> torch.Tensor:
         out = histogram_ref(idx, nbins)
     else:
         raise ValueError(f"no histogram kernel for device {idx.device}")
-    return out[:k]
+    return out[:k] if pad else out

@@ -37,9 +37,9 @@ from repro_torch.stats.special import poisson_midp_upper
 BACKENDS = ("auto", "reference", "accelerated")
 
 # Largest urn space collision sends to the histogram kernel (the
-# reference's bound). Above the kernel's shared-memory bin limit
-# (kernels/histogram/histogram.cu, kSmemMaxBins) the kernel counts with
-# global atomics, so 2^16 urns take that variant.
+# reference's bound). The kernel keeps up to CLUSTER_MAX_BINS (2^17) bins
+# in the shared memory of a thread-block cluster
+# (kernels/histogram/kernel.py::plan), so 2^16 urns stay on chip.
 HIST_MAX_BINS = 1 << 16
 
 _REGISTRY: Dict[str, Dict[str, Callable]] = {}

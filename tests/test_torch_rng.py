@@ -142,8 +142,6 @@ def test_ints_against_numpy_unsigned():
         ints.popcount32(tw).numpy(),
         np.array([bin(int(x)).count("1") for x in w]))
     np.testing.assert_array_equal(
-        ints.to_int32_bits(tw).numpy(), w.astype(np.uint32).view(np.int32))
-    np.testing.assert_array_equal(
         ints.to_unit(tw).numpy(),
         (w >> 8).astype(np.float32) * np.float32(1.0 / (1 << 24)))
     assert ints.s64(2 ** 64 - 1) == -1 and ints.s64(2 ** 63) == -2 ** 63
