@@ -6,14 +6,17 @@
 Phases, one line each (details in ``reports/chip_smoke/chip_smoke.json``):
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: the three CUDA kernels compiled from the checkout for sm_90a,
+2. build: the four CUDA kernels compiled from the checkout for sm_90a,
    one nvcc each, started together; the flash-attention library's SASS
    must hold tensor-core (HGMMA) instructions;
 3. kernels: the histogram and GF(2)-rank kernels against their plain
    PyTorch versions on the card, bitwise, at the parity shapes below
    (every histogram route and its boundaries; matrices of every rank
    0-32, through the int64 entry); the flash-attention kernel against
-   its plain version at the reference suite's shapes, the serving shapes
+   its plain version at the reference suite's shapes; the mwc kernel
+   against its plain loop, bitwise, at lengths around its 64-word chunk
+   and up to 2^23 words, from several seeds, two whose start carry is
+   >= a (found by search) and the largest start state; the serving shapes
    (bfloat16 and float32), one padded length and the tensor-core route's
    softcap and MQA dh-64 cases, within
    the reference suite's tolerances (2e-5 float32, 2e-2 bfloat16); the
@@ -34,13 +37,24 @@ Phases, one line each (details in ``reports/chip_smoke/chip_smoke.json``):
    SmallCrush acceptance run, splitmix64 + randu. Launch counts are zeroed
    just before each run and read just after, and BigCrush's kernel shapes
    are printed with their launches; SmallCrush is held against the
-   reference's golden JSON (``src/repro_torch/golden``);
+   reference's golden JSON (``src/repro_torch/golden``); then BigCrush
+   x1.0 of mwc + splitmix64, whose mwc words come from the mwc kernel;
 5. the same two runs with ``--backend reference``: same verdicts and the
    same (stat, p); then the warm wall time of BigCrush under both
    backends, in turns, and one more warm accelerated BigCrush under
    torch.profiler: kernels and device ms by name, device busy time and
    idle share, and a check that each histogram and gf2_rank call was one
    device kernel, none on the histogram's global-atomics route;
+   resume: the BigCrush x1.0 command with ``--ckpt`` in a subprocess,
+   SIGKILLed once its checkpoint holds a third of the job ids, run again
+   (only the missing jobs; per-test (stat, p) and verdicts bitwise those
+   of phase 4's uninterrupted run), and a third time (``rounds=0``); the
+   host time of one checkpoint save; the same kill and resume under
+   ``--adaptive --verdict-engine evalue`` (splitmix64 PASS, randu FAIL
+   before its last test, the ``evidence`` key), held against the same
+   run on ``--backend reference``: same verdicts and checked tests,
+   log-wealth within the tolerance derived from the tests' p
+   (``tests/test_torch_reference.py::log_wealth_tolerance``);
 6. serve: qwen2-1.5b at full width on cuda, weights from seed 0, bfloat16
    compute: 4 requests of 512-token prompts with 64 greedy tokens each,
    then 2 of 2048 tokens with 16 each; 28 flash-attention launches per
@@ -54,7 +68,7 @@ Phases, one line each (details in ``reports/chip_smoke/chip_smoke.json``):
    the first step where the tokens differ is reported (not checked).
 
 Phase 3 times every kernel at the shapes the main paths gave it (BigCrush
-for the battery kernels, phase 6 for flash attention).
+for the battery kernels and mwc, phase 6 for flash attention).
 
 Any failure raises, and the script exits non-zero without a result line.
 The last three lines are the kernels' JSON, the card, and
@@ -102,6 +116,21 @@ MAIN_ARGS = [
     ("smallcrush", ["--battery", "smallcrush", "--gen", "splitmix64,randu",
                     "--scale", "0.0625", "--seed", "7", "--adaptive"]),
 ]
+# mwc: lengths around the kernel's 64-word chunk, odd and large; start
+# states from (seed, stream), the last two found by search with a start
+# carry c0 >= a (tests/test_torch_rng.py::MWC_WIDE_CARRY), and the largest
+# state (x0 = 2^32 - 1, c0 = a), whose first step passes the prime
+# a*2^32 - 1; above MWC_ALL_STATES words the plain loop takes seconds, so
+# two states only
+MWC_PARITY = [1, 2, 63, 64, 65, (1 << 10) + 3, 1 << 20, 1 << 23]
+MWC_SEEDS = [(7, 3), (42, 0), (123456, 77), (131490111, 0), (2010969873, 1)]
+MWC_ALL_STATES = 1 << 20
+MWC_ARGS = ["--battery", "bigcrush", "--gen", "mwc,splitmix64", "--scale",
+            "1.0", "--seed", "7"]
+# families whose float path was seen not to repeat bit for bit on the card
+# (ROADMAP queue 3): only these are held to the parity tolerance, by name,
+# when a resumed run is compared with an uninterrupted one
+NONDETERMINISTIC_FAMILIES = ()
 # (B, S, H, K, dh, softcap, dtype): the reference suite's four shapes
 # (tests/test_kernels.py), the serving shapes in bfloat16 and in float32
 # (the float32 cases hold the CUDA-core route's 4- and 16-tile kv loop at
@@ -264,12 +293,49 @@ def rank_case(m, seed=0):
             "library_ms": None, "bound_ms": bound, "bound_by": by}
 
 
+def mwc_state(seed, stream):
+    """The (x0, c0) that ``mwc_block`` starts from."""
+    from repro_torch.rng.generators import _mix_seed
+    s = _mix_seed(seed, stream) % (1 << 64)
+    return (s >> 32) | 1, (s & 0xFFFFFFFF) | 1
+
+
+def mwc_case(n, states):
+    """Check the mwc kernel at ``n`` words from each state against the
+    plain loop, bitwise; time the kernel (per call, device) and the loop
+    (on the card's inputs: the loop, then the copy to the card) from the
+    first state."""
+    import torch
+    from repro_torch.kernels.mwc.kernel import mwc_words
+    from repro_torch.kernels.mwc.ref import mwc_ref
+    err = 0
+    for x0, c0 in states:
+        got = mwc_words(x0, c0, n, "cuda")
+        torch.cuda.synchronize()
+        want = mwc_ref(x0, c0, n, "cpu")
+        err = max(err, int((got.cpu() - want).abs().max()) if n else 0)
+        check(torch.equal(got.cpu(), want),
+              f"mwc n={n} state ({x0}, {c0}): kernel != plain")
+    x0, c0 = states[0]
+    # int64 words written once; one 32x32->64-bit multiply-add a word
+    bound, by = bound_ms(8 * n, 2 * n, INT32_OPS_PER_S)
+    slow = n > MWC_ALL_STATES
+    return {"n": n, "states": len(states), "max_abs_err": float(err),
+            "ms": median_ms(lambda: mwc_words(x0, c0, n, "cuda")),
+            "device_ms": device_ms(lambda: mwc_words(x0, c0, n, "cuda")),
+            "plain_ms": median_ms(lambda: mwc_ref(x0, c0, n, "cuda"),
+                                  reps=1 if slow else 3, warmup=0),
+            "library_ms": None, "bound_ms": bound, "bound_by": by}
+
+
 def print_battery(name, c):
     """One ``[kernels]`` line of a battery kernel: per-call times (CUDA
     events around one call), then device time per call."""
     if name == "histogram":
         shape = f"N={c['n']} k={c['nbins']}"
         extra = f", torch.bincount {c['library_ms']:.4f} ms"
+    elif name == "mwc":
+        shape, extra = f"n={c['n']} ({c['states']} state(s))", ""
     else:
         shape, extra = f"M={c['m']}", ""
     launches = (f" x{c['launches']} on the main path" if "launches" in c
@@ -453,8 +519,9 @@ def _kernel_fns():
     from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.kernels.gf2_rank.kernel import gf2_rank
     from repro_torch.kernels.histogram.kernel import histogram
+    from repro_torch.kernels.mwc.kernel import mwc_words
     return {"histogram": histogram, "gf2_rank": gf2_rank,
-            "flash_attention": flash_attention}
+            "flash_attention": flash_attention, "mwc": mwc_words}
 
 
 def zero_counts():
@@ -468,14 +535,14 @@ def launch_counts():
     return {name: fn.launches for name, fn in _kernel_fns().items()}
 
 
-def run_cli(name, args, backend):
+def run_cli(name, args, backend, codes=(1,)):
     """One main-path run through the CLI; returns its JSON report."""
     from repro_torch.launch import battery as cli
     path = os.path.join(OUT_DIR, f"{name}_{backend}.json")
     t0 = time.perf_counter()
     code = cli.main(args + ["--backend", backend, "--json", path])
     wall = time.perf_counter() - t0
-    check(code == 1, f"{name}/{backend}: exit {code}, want 1 (randu fails)")
+    check(code in codes, f"{name}/{backend}: exit {code}, want {codes}")
     with open(path) as f:
         rep = json.load(f)
     rep["_wall_s"] = wall
@@ -492,6 +559,14 @@ def words_generated(rep, scale):
                if t["p"] is not None)
 
 
+def ran(test):
+    """Whether a ``--json`` test entry holds a result. A run resumed from
+    a checkpoint reports a test that one generator never ran with a NaN
+    p (the checkpoint's (G, K) arrays hold NaN there), as the reference
+    does; a run from scratch reports no p."""
+    return test["p"] is not None and not math.isnan(test["p"])
+
+
 def compare_runs(a, b, what, tol):
     """Same verdicts, checked tests and failures; (stat, p) within tol."""
     for gen, ra in a["runs"].items():
@@ -500,9 +575,9 @@ def compare_runs(a, b, what, tol):
             check(ra[key] == rb[key], f"{what} {gen}: {key} {ra[key]} != "
                                       f"{rb[key]}")
         for ta, tb in zip(ra["tests"], rb["tests"]):
-            check((ta["p"] is None) == (tb["p"] is None),
+            check(ran(ta) == ran(tb),
                   f"{what} {gen} {ta['name']}: ran in one run only")
-            if ta["p"] is None:
+            if not ran(ta):
                 continue
             ok_s = math.isclose(ta["stat"], tb["stat"], rel_tol=1e-5,
                                 abs_tol=1e-7)
@@ -512,7 +587,104 @@ def compare_runs(a, b, what, tol):
                                  f"{tb['stat']}/{tb['p']}")
 
 
+def run_proc(name, args, ckpt, kill_at=None):
+    """The battery CLI in a subprocess with ``--ckpt ckpt``; with
+    ``kill_at``, SIGKILLed once the checkpoint holds at least ``kill_at``
+    job ids (read after each progress line). Returns the exit code, the
+    standard output, the JSON report (None when killed) and the seconds
+    it ran."""
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    path = os.path.join(OUT_DIR, f"{name}.json")
+    if os.path.exists(path):
+        os.remove(path)
+    cmd = [sys.executable, "-m", "repro_torch.launch.battery", *args,
+           "--ckpt", ckpt, "--json", path]
+    from repro_torch.core.api import Checkpoint
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True, bufsize=1)
+    lines = []
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if (kill_at and line.lstrip().startswith("round ")
+                    and len(Checkpoint.load(ckpt).job_idx) >= kill_at):
+                proc.kill()
+                break
+        proc.wait(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+    out = "".join(lines)
+    with open(os.path.join(OUT_DIR, f"{name}.log"), "w") as f:
+        f.write(out)
+    rep = None
+    if os.path.exists(path):
+        with open(path) as f:
+            rep = json.load(f)
+    return proc.returncode, out, rep, time.perf_counter() - t0
+
+
+def rounds_line(out):
+    """``rounds=R/P`` of a CLI run's summary line, as (R, P)."""
+    tail = [ln for ln in out.splitlines() if " rounds=" in ln][-1]
+    r, p = tail.split(" rounds=")[1].split()[0].split("/")
+    return int(r), int(p)
+
+
+def compare_bitwise(a, b, what, entries):
+    """Same verdicts and every per-test (stat, p) equal bit for bit,
+    except for NONDETERMINISTIC_FAMILIES, held to the parity tolerance
+    and named. A decided Bonferroni verdict keeps the look it was made at
+    (its checked and failed tests), and a resumed run's first look is at
+    the checkpoint's results, so those two fields are not compared."""
+    loose = set()
+    for gen, ra in a["runs"].items():
+        rb = b["runs"][gen]
+        check(ra["verdict"] == rb["verdict"], f"{what} {gen}: verdict "
+                                              f"{ra['verdict']} != "
+                                              f"{rb['verdict']}")
+        for ta, tb in zip(ra["tests"], rb["tests"]):
+            if (ta["stat"], ta["p"]) == (tb["stat"], tb["p"]):
+                continue
+            kname = entries[ta["index"]].kname
+            check(kname in NONDETERMINISTIC_FAMILIES and ta["p"] is not None
+                  and tb["p"] is not None
+                  and math.isclose(ta["stat"], tb["stat"], rel_tol=1e-5,
+                                   abs_tol=1e-7)
+                  and math.isclose(ta["p"], tb["p"], rel_tol=1e-5,
+                                   abs_tol=1e-7),
+                  f"{what} {gen} {ta['name']} ({kname}): "
+                  f"{ta['stat']!r}/{ta['p']!r} vs {tb['stat']!r}/{tb['p']!r}")
+            loose.add(kname)
+    return sorted(loose)
+
+
+def kill_and_resume(name, args, n_jobs):
+    """Start ``args`` with a fresh checkpoint, kill it once the file holds
+    a third of the ``n_jobs`` job ids, and run the same command again to
+    its end. Returns (jobs saved at the kill, the resumed run's code,
+    output and report, the checkpoint path)."""
+    from repro_torch.core.api import Checkpoint
+    ckpt = os.path.join(OUT_DIR, f"{name}.ck")
+    if os.path.exists(ckpt):
+        os.remove(ckpt)
+    code, _, _, secs = run_proc(f"{name}_killed", args, ckpt,
+                                kill_at=-(-n_jobs // 3))
+    saved = len(Checkpoint.load(ckpt).job_idx)
+    check(code == -9, f"{name}: the first run exited {code} before the kill")
+    check(-(-n_jobs // 3) <= saved < n_jobs,
+          f"{name}: killed with {saved} of {n_jobs} job ids saved")
+    print(f"[resume] {name}: killed after {secs:.1f}s with {saved} of "
+          f"{n_jobs} job ids in the checkpoint", flush=True)
+    code, out, rep, secs = run_proc(f"{name}_resumed", args, ckpt)
+    return saved, code, out, rep, ckpt, secs
+
+
 def main():
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -558,13 +730,23 @@ def main():
     from repro_torch.kernels.histogram.kernel import histogram
     hist_parity = [hist_case(n, k) for n, k in HIST_PARITY]
     rank_parity = [rank_case(m) for m in RANK_PARITY]
+    from repro_torch.kernels.mwc.kernel import MWC_A, mwc_words
+    mwc_states = [mwc_state(*pair) for pair in MWC_SEEDS]
+    check(all(c0 >= MWC_A for _, c0 in mwc_states[-2:]),
+          "the mwc wide-carry seeds do not start with c0 >= a")
+    mwc_states.append(((1 << 32) - 1, MWC_A))
+    mwc_parity = [mwc_case(n, mwc_states if n <= MWC_ALL_STATES
+                           else mwc_states[:1] + mwc_states[-2:-1])
+                  for n in MWC_PARITY]
     fa_parity = [fa_case(*shape) for shape in FA_PARITY]
     details["parity"] = {"histogram": hist_parity, "gf2_rank": rank_parity,
-                         "flash_attention": fa_parity}
+                         "mwc": mwc_parity, "flash_attention": fa_parity}
     for c in hist_parity:
         print_battery("histogram", c)
     for c in rank_parity:
         print_battery("gf2_rank", c)
+    for c in mwc_parity:
+        print_battery("mwc", c)
     for c in fa_parity:
         print_fa(c)
 
@@ -607,6 +789,28 @@ def main():
     print("[main] smallcrush matches the reference golden JSON "
           "(verdicts, checked tests, (stat, p) within tolerance)",
           flush=True)
+
+    # BigCrush x1.0 of mwc + splitmix64: mwc's words from its kernel
+    zero_counts()
+    rep = run_cli("bigcrush_mwc", MWC_ARGS, "accelerated", codes=(0, 1))
+    launches = launch_counts()
+    calls["bigcrush_mwc"] = {"mwc": dict(mwc_words.calls)}
+    check(launches["mwc"] and launches["histogram"] and launches["gf2_rank"],
+          f"bigcrush_mwc: a kernel was not launched {launches}")
+    check(sum(mwc_words.calls.values()) == launches["mwc"]
+          == len(build_battery("bigcrush", 1.0, device="cpu")),
+          f"bigcrush_mwc: {launches['mwc']} mwc launches, want one per job")
+    rep["_launches"] = launches
+    rep["_words"] = words_generated(rep, 1.0)
+    mwc_words_per_run = sum(n * c for n, c in mwc_words.calls.items())
+    accel["bigcrush_mwc"] = rep
+    verdicts = {g: r["verdict"] for g, r in rep["runs"].items()}
+    print(f"[main] bigcrush_mwc accelerated on cuda: {verdicts} (suspects "
+          f"{ {g: r['suspects'] for g, r in rep['runs'].items()} }) | wall "
+          f"{rep['_wall_s']:.2f}s, rounds {rep['rounds_run']}/"
+          f"{rep['plan_rounds']}, launches {launches}, mwc words "
+          f"{mwc_words_per_run} in {launches['mwc']} launches, shapes "
+          f"{sorted(mwc_words.calls.items())}", flush=True)
 
     # 5. the same runs with the plain versions
     for name, args in MAIN_ARGS:
@@ -667,6 +871,100 @@ def main():
           f"{launches['gf2_rank']}", flush=True)
     for key, count, ms in prof["by_name"][:12]:
         print(f"[profile]   {ms:8.3f} ms x{count:5d}  {key[:90]}", flush=True)
+
+    # resume after an eviction: the BigCrush command with --ckpt, killed
+    # mid-way and run again, in subprocesses (the paper's restart)
+    from test_torch_reference import log_wealth_tolerance
+    from repro_torch.core.api import PoolSession, RunSpec
+    big_entries = build_battery("bigcrush", 1.0, device="cpu")
+    n_jobs = len(big_entries)
+    resume_args = big + ["--backend", "accelerated"]
+    saved, code, out, rep, ckpt, secs = kill_and_resume(
+        "resume_bigcrush", resume_args, n_jobs)
+    check(code == 1 and rep is not None,
+          f"resumed bigcrush: exit {code}, want 1 (randu fails)")
+    rounds = rounds_line(out)
+    check(rounds[0] == n_jobs - saved,
+          f"resumed bigcrush ran {rounds} rounds for {n_jobs - saved} "
+          f"missing jobs")
+    loose = compare_bitwise(rep, accel["bigcrush"],
+                            "resumed bigcrush vs uninterrupted", big_entries)
+    print(f"[resume] bigcrush resumed in {secs:.1f}s: rounds={rounds[0]}/"
+          f"{rounds[1]} (the {n_jobs - saved} missing jobs); verdicts "
+          f"{ {g: r['verdict'] for g, r in rep['runs'].items()} } and every "
+          f"per-test (stat, p) bitwise those of the uninterrupted run"
+          + (f", except families {loose} (within rtol 1e-5)" if loose
+             else ""), flush=True)
+    code, out, rep3, secs = run_proc("resume_bigcrush_again", resume_args,
+                                     ckpt)
+    check(code == 1 and rounds_line(out)[0] == 0,
+          f"third bigcrush run: exit {code}, {rounds_line(out)}")
+    compare_bitwise(rep3, accel["bigcrush"], "third bigcrush run",
+                    big_entries)
+    print(f"[resume] bigcrush run a third time: rounds=0 "
+          f"({rounds_line(out)}), same results, {secs:.1f}s", flush=True)
+    # host time of one checkpoint save, at its largest (every job of both
+    # generators), against the wall time of a warm round
+    handle = PoolSession(device="cuda").submit(RunSpec(
+        "bigcrush", ("splitmix64", "randu"), seeds=(7,), scale=1.0,
+        backend="accelerated", checkpoint_path=ckpt))
+    save_ms = []
+    for _ in range(21):
+        t0 = time.perf_counter()
+        handle._save_checkpoint()
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+    round_ms = statistics.median(walls["accelerated"]) * 1e3 / n_jobs
+    details["resume"] = {
+        "saved_at_kill": saved, "rounds": rounds, "families_loose": loose,
+        "ckpt_save_ms": save_ms, "ckpt_bytes": os.path.getsize(ckpt),
+        "warm_round_ms": round_ms}
+    print(f"[resume] checkpoint save on the host ({n_jobs} jobs x 2 "
+          f"generators, {os.path.getsize(ckpt)} B): median "
+          f"{statistics.median(save_ms):.3f} ms (min {min(save_ms):.3f}) "
+          f"per round, against {round_ms:.3f} ms of warm wall per round "
+          f"without a checkpoint", flush=True)
+
+    # the same kill and resume under the e-value engine with early stop
+    ev_args = big + ["--adaptive", "--verdict-engine", "evalue"]
+    saved, code, out, rep, _, secs = kill_and_resume(
+        "resume_evalue", ev_args + ["--backend", "accelerated"], n_jobs)
+    check(code == 1 and rep is not None and "evidence" in rep,
+          f"resumed evalue bigcrush: exit {code}, evidence key "
+          f"{rep is not None and 'evidence' in rep}")
+    runs = rep["runs"]
+    check(runs["splitmix64"]["verdict"] == "PASS"
+          and runs["randu"]["verdict"] == "FAIL"
+          and runs["randu"]["tests_checked"] < n_jobs,
+          f"resumed evalue bigcrush: {runs['splitmix64']['verdict']}, "
+          f"{runs['randu']['verdict']} after "
+          f"{runs['randu']['tests_checked']} tests")
+    ev_ref = run_cli("bigcrush_evalue", ev_args, "reference")
+    def p_tol(kname, params, stat, p):
+        """The parity contract between the port's two backends."""
+        return ATOL + RTOL * abs(p)
+    compare_runs(rep, ev_ref, "evalue accelerated (resumed) vs reference",
+                 lambda a, b: p_tol(None, None, None, b["p"]))
+    wealth = {}
+    for gen, run in ev_ref["runs"].items():
+        parts = [(big_entries[t["index"]].kname,
+                  dict(big_entries[t["index"]].params), t["stat"], t["p"])
+                 for t in run["tests"] if t["p"] is not None]
+        tol = log_wealth_tolerance(parts, p_tol=p_tol)
+        got = rep["evidence"]["runs"][gen]["log_wealth"]
+        want = ev_ref["evidence"]["runs"][gen]["log_wealth"]
+        check(abs(got - want) <= tol, f"evalue {gen}: log_wealth {got} vs "
+                                      f"reference backend {want} > {tol}")
+        wealth[gen] = (got, want, tol)
+    details["resume_evalue"] = {"saved_at_kill": saved,
+                                "rounds": rounds_line(out),
+                                "log_wealth": wealth}
+    print(f"[resume] evalue adaptive bigcrush, killed with {saved} job ids "
+          f"saved and resumed ({secs:.1f}s, rounds={rounds_line(out)}): "
+          f"splitmix64 PASS after {runs['splitmix64']['tests_checked']} "
+          f"tests, randu FAIL after {runs['randu']['tests_checked']} of "
+          f"{n_jobs}; --backend reference gives the same verdicts and "
+          f"checked tests, log_wealth (resumed, reference, tolerance) "
+          f"{wealth}", flush=True)
 
     # 6. serve: qwen2-1.5b at full width, bfloat16 compute
     from repro_torch.configs import get_config
@@ -811,11 +1109,13 @@ def main():
                             for (n, k), c in main_calls["histogram"].items()],
               "gf2_rank": [rank_case(m, seed=1) | {"launches": c}
                            for m, c in main_calls["gf2_rank"].items()],
+              "mwc": [mwc_case(n, [mwc_state(7, 0)]) | {"launches": c}
+                      for n, c in calls["bigcrush_mwc"]["mwc"].items()],
               "flash_attention": [
                   fa_case(b, s, h, kh, dh, 0.0, dt.split(".")[-1], seed=1)
                   | {"launches": c}
                   for (b, s, t, h, kh, dh, dt, _), c in fa_calls.items()]}
-    for name in ("histogram", "gf2_rank"):
+    for name in ("histogram", "gf2_rank", "mwc"):
         for c in shapes[name]:
             print_battery(name, c)
     for c in shapes["flash_attention"]:
@@ -826,12 +1126,15 @@ def main():
                             for n, r in accel.items()}
     main_launches = {"histogram": accel["bigcrush"]["_launches"]["histogram"],
                      "gf2_rank": accel["bigcrush"]["_launches"]["gf2_rank"],
+                     "mwc": accel["bigcrush_mwc"]["_launches"]["mwc"],
                      "flash_attention": serve_launches}
     rows = []
     meta = {"histogram": ("src/repro_torch/kernels/histogram/histogram.cu",
                           "src/repro/kernels/histogram/kernel.py:39"),
             "gf2_rank": ("src/repro_torch/kernels/gf2_rank/gf2_rank.cu",
                          "src/repro/kernels/gf2_rank/kernel.py:61"),
+            "mwc": ("src/repro_torch/kernels/mwc/mwc.cu",
+                    "src/repro/rng/generators.py:290"),
             "flash_attention": (
                 "src/repro_torch/kernels/flash_attention/fa_hopper.cuh",
                 "src/repro/kernels/flash_attention/kernel.py:80")}
@@ -856,6 +1159,9 @@ def main():
             "library_ms": total("library_ms")})
     details["kernels"] = rows
     details["card"] = card
+    details["seconds"] = time.perf_counter() - t_start
+    print(f"[time] chip_smoke.py ran {details['seconds']:.1f}s, the "
+          f"kernels' build included", flush=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump(details, f, indent=1, default=str)
     print(json.dumps({"kernels": rows}))

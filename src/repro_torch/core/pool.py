@@ -7,7 +7,10 @@ the registered generator, then run the job's bound test kernel.
 ``job_id == -1`` is an idle slot and returns ``(0, nan)`` without
 generating anything. A round runner covers the W slots of one round for
 one generator (``make_round_runner``) or several (``make_fanout_runner``)
-and brings the round's results to the host in one copy.
+and brings the round's results to the host in one copy;
+``make_batch_runner`` does the same for a whole plan, and
+``run_sequential`` runs a table in order on one worker (the stock
+TestU01 baseline).
 
 Job results are a pure function of the job table, the generator and the
 seed: which slot or round runs a job changes nothing, which is what
@@ -20,6 +23,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch.common.device import resolve_device
 from repro_torch.core.battery import TestEntry
 from repro_torch.rng.sources import switch_block
 
@@ -123,3 +127,49 @@ def make_fanout_runner(entries: List[TestEntry], mesh,
         return _round(job, row, seeds, gen_ids)
 
     return round_fn
+
+
+def make_batch_runner(entries: List[TestEntry], mesh):
+    """Whole-plan runner: ``(plan (R, W), seed, gen_id) -> (stats, ps)``,
+    each (R, W), brought to the host in one copy (benchmarks use it; the
+    checkpointing driver runs round by round)."""
+    job = _job_fn(entries, mesh.device)
+
+    def plan_fn(plan, seed, gen_id):
+        plan = np.asarray(plan)
+        stats, ps = _round(job, plan.reshape(-1), [seed], [gen_id])
+        return stats[0].reshape(plan.shape), ps[0].reshape(plan.shape)
+
+    return plan_fn
+
+
+def _entry_signature(e: TestEntry) -> tuple:
+    """Structural identity of an entry: everything ``_job_fn`` reads.
+    Registry-built kernels are a pure function of (kname, backend,
+    params); an entry with a custom callable (no kname) keys on the
+    callable's identity."""
+    return (e.kname or id(e.kernel), e.params, e.backend, e.n_words,
+            e.group, e.part)
+
+
+_SEQ_RUNNERS: dict = {}
+_SEQ_RUNNERS_MAX = 32
+
+
+def run_sequential(entries: List[TestEntry], seed: int, gen_id: int,
+                   device=None):
+    """Stock TestU01: every test in order on one worker (the baseline).
+    Returns ``(stats, ps)``, each (K,). The job function is cached on the
+    table's structural signature and the device, so equal tables (seed
+    or generator sweeps, fresh ``build_battery`` results) reuse it; the
+    cache keeps the newest 32."""
+    dev = resolve_device(device)
+    key = (str(dev), tuple(_entry_signature(e) for e in entries))
+    job = _SEQ_RUNNERS.get(key)
+    if job is None:
+        job = _job_fn(entries, dev)
+        if len(_SEQ_RUNNERS) >= _SEQ_RUNNERS_MAX:
+            _SEQ_RUNNERS.pop(next(iter(_SEQ_RUNNERS)))
+        _SEQ_RUNNERS[key] = job
+    stats, ps = _round(job, range(len(entries)), [seed], [gen_id])
+    return stats[0], ps[0]

@@ -1,11 +1,13 @@
 """superstitch: fold per-(round, worker) results into the battery
-report, and the Bonferroni-sequential verdict engine
-(``repro/core/stitch.py``, classic path).
+report, the Bonferroni-sequential verdict engine and the registry of
+verdict engines (``repro/core/stitch.py``, classic path).
 
 Over-decomposed tests are folded back per group (Stouffer or Fisher);
 suspicious p-values are flagged with TestU01's two-sided convention.
 ``sequential_verdict`` is valid at every interim look, which is what
-lets the adaptive policy cancel a failed generator after any round."""
+lets the adaptive policy cancel a failed generator after any round;
+``VERDICT_ENGINES`` names it and the e-value engine
+(``core/evidence.py``) that ``RunSpec.verdict_engine`` picks from."""
 from __future__ import annotations
 
 import dataclasses
@@ -13,6 +15,8 @@ from typing import Dict, List, Tuple
 
 import numpy as np
 from scipy import special as sps
+
+from repro_torch.core import evidence
 
 
 SUSPECT_P = 1e-4
@@ -159,6 +163,32 @@ def sequential_verdict(results: Dict[int, tuple], n_total: int,
         decision = UNDECIDED
     return Verdict(decision, float(alpha), float(thr), n_checked,
                    int(n_total), tuple(sorted(failed)))
+
+
+# Re-exported so the verdict surface lives in one module: the e-value
+# engine itself is implemented in repro_torch.core.evidence.
+EvidenceVerdict = evidence.EvidenceVerdict
+evidence_verdict = evidence.evidence_verdict
+VerdictEngineMismatch = evidence.VerdictEngineMismatch
+
+#: The verdict engines ``RunSpec(verdict_engine=...)`` selects from. Every
+#: engine shares the ``(results, n_total, alpha=...)`` call shape and
+#: returns a Verdict-shaped object (``decision`` / ``decided`` /
+#: ``n_checked`` / ``failed_tests``).
+VERDICT_ENGINES = {
+    "bonferroni": sequential_verdict,
+    "evalue": evidence_verdict,
+}
+
+
+def verdict_for(engine: str):
+    """The verdict engine callable registered under ``engine``; raises
+    ``KeyError`` naming the known engines for anything else."""
+    try:
+        return VERDICT_ENGINES[engine]
+    except KeyError:
+        raise KeyError(f"unknown verdict engine {engine!r}; known: "
+                       f"{sorted(VERDICT_ENGINES)}") from None
 
 
 def report(entries, results: Dict[int, tuple], gen_name: str,

@@ -27,6 +27,7 @@ SOURCES = {
     "histogram": KERNEL_DIR / "histogram" / "histogram.cu",
     "gf2_rank": KERNEL_DIR / "gf2_rank" / "gf2_rank.cu",
     "flash_attention": KERNEL_DIR / "flash_attention" / "flash_attention.cu",
+    "mwc": KERNEL_DIR / "mwc" / "mwc.cu",
 }
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

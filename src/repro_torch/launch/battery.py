@@ -8,15 +8,20 @@ classic path)::
 Runs on ``cuda`` unless ``--device cpu`` is given. ``--gen`` takes a
 comma-separated list, assessed in one round loop. ``--adaptive`` orders
 rounds by discrimination/cost and cancels a generator's pending rounds
-once its sequential verdict is decided. ``--json PATH`` writes the
-reference's machine-readable report keys.
+once its verdict is decided. ``--ckpt PATH`` saves progress after every
+round in the reference's checkpoint v5; running the same command again
+resumes from it, dispatching only the missing jobs (``rounds=0`` once
+the file is complete), and either package resumes the other's file.
+``--verdict-engine evalue`` judges with anytime-valid e-value wealth
+(``core/evidence.py``) and adds the ``evidence`` section to ``--json``.
+``--json PATH`` writes the reference's machine-readable report keys.
 
-Exit code: 1 when any p-value is suspect (or, under ``--adaptive``,
-any generator FAILs), else 0.
+Exit code: 1 when any p-value is suspect (or, under ``--adaptive`` or
+the ``evalue`` engine, any generator FAILs), else 0.
 
-Flags of the reference that select parts not ported yet (checkpoints,
-campaigns, captured sources, elastic resize, fault injection, serving,
-the e-value engine) are refused with an error, never ignored.
+Flags of the reference that select parts not ported yet (campaigns,
+captured sources, elastic resize, fault injection, serving) are refused
+with an error, never ignored.
 """
 from __future__ import annotations
 
@@ -28,7 +33,7 @@ from typing import Optional, Sequence
 
 # reference flags whose subsystems are not ported yet: (flag, takes value)
 _NOT_PORTED = (("--source", True), ("--register", True), ("--inject", True),
-               ("--ckpt", True), ("--resize-at", True), ("--campaign", False),
+               ("--resize-at", True), ("--campaign", False),
                ("--streams", True), ("--waves", True), ("--ledger", True),
                ("--no-stream-check", False), ("--serve", False),
                ("--serve-state", True), ("--serve-resubmit", False),
@@ -55,12 +60,17 @@ def build_parser() -> argparse.ArgumentParser:
                     help="family-wise error rate of the verdict")
     ap.add_argument("--verdict-engine", dest="verdict_engine",
                     default="bonferroni", choices=["bonferroni", "evalue"],
-                    help="only bonferroni is ported")
+                    help="bonferroni = the sequential test, evalue = "
+                         "anytime-valid e-value wealth (adds 'evidence' "
+                         "to --json)")
     ap.add_argument("--backend", default="auto",
                     choices=["auto", "reference", "accelerated"],
                     help="reference = plain PyTorch, accelerated = the "
                          "CUDA kernels, auto = accelerated on cuda")
     ap.add_argument("--retries", type=int, default=2)
+    ap.add_argument("--ckpt", default=None,
+                    help="checkpoint path: saved after every round, "
+                         "resumed from when it exists")
     ap.add_argument("--device", default="cuda",
                     help="torch device the pool runs on (default cuda)")
     ap.add_argument("--json", dest="json_path", default=None,
@@ -81,9 +91,6 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         if getattr(args, "unported_" + flag[2:].replace("-", "_")):
             ap.error(f"{flag} is not ported to repro_torch yet; run it "
                      f"with python -m repro.launch.battery")
-    if args.verdict_engine != "bonferroni":
-        ap.error(f"--verdict-engine {args.verdict_engine} is not ported to "
-                 f"repro_torch yet (only bonferroni)")
     if args.adaptive:
         if args.policy not in ("lpt", "adaptive"):
             ap.error(f"--adaptive selects the adaptive schedule policy; "
@@ -100,8 +107,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     spec = RunSpec(args.battery, generators=gens, seeds=(args.seed,),
                    scale=args.scale, policy=args.policy,
                    retry=RetryPolicy(max_retries=args.retries),
-                   progress=True, alpha=args.alpha,
-                   stop_on_verdict=args.adaptive, backend=args.backend)
+                   checkpoint_path=args.ckpt, progress=True,
+                   alpha=args.alpha, stop_on_verdict=args.adaptive,
+                   verdict_engine=args.verdict_engine, backend=args.backend)
     backend_resolved = kernel_backends.resolve(args.backend, session.device)
     print(f"pool: {session.n_workers} workers on {session.device} | "
           f"battery={args.battery} gen={','.join(gens)} scale={args.scale} "
@@ -135,6 +143,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             "wall_s": round(res.wall_s, 3), "rounds_run": res.rounds_run,
             "retries": res.retries, "plan_rounds": plan_rounds, "runs": {},
         }
+        if args.verdict_engine != "bonferroni":
+            # only under a non-default engine: the wealth trajectories
+            # the anytime-valid verdicts were read off
+            payload["evidence"] = {
+                "engine": args.verdict_engine,
+                "threshold": 1.0 / args.alpha,
+                "runs": {gen: {"wealth": run.verdict.wealth,
+                               "log_wealth": run.verdict.log_wealth,
+                               "trajectory": list(run.verdict.trajectory)}
+                         for gen, run in runs.items()}}
         for gen, run in runs.items():
             tests = []
             for e in entries:
@@ -156,8 +174,9 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         print(f"json report -> {args.json_path}")
 
     suspects = sum(run.n_suspect for run in runs.values())
-    failed = args.adaptive and any(run.verdict.decision == "FAIL"
-                                   for run in runs.values())
+    failed = ((args.adaptive or args.verdict_engine != "bonferroni")
+              and any(run.verdict.decision == "FAIL"
+                      for run in runs.values()))
     return 0 if suspects == 0 and not failed else 1
 
 

@@ -9,8 +9,11 @@ Counter-based generators (splitmix64, msweyl, threefry, pcg32/lcg64 by
 LCG jump-ahead) evaluate every word in parallel. xorshift64*, RANDU and
 MINSTD use the reference's jump-ahead cycle splitting: a square-and-
 multiply ladder per lane, so their words equal the sequential
-recurrence. MWC's carry chain has no cheap jump: it runs as a host loop
-and takes no offset. RANDU is the known-bad canary.
+recurrence. MWC is a Lehmer generator modulo the prime ``a*2^32 - 1``
+in disguise, so its kernel jumps each thread to its own chunk
+(``kernels/mwc``); the registry still declares it not counter-based and
+gives it no offset, as the reference does. RANDU is the known-bad
+canary.
 
 Threefry reproduces ``jax.random`` as configured with
 ``jax_threefry_partitionable=True`` (the default since JAX 0.5):
@@ -26,6 +29,7 @@ import torch
 
 from repro_torch.common.device import resolve_device
 from repro_torch.common.ints import MASK32, hi32, lo32, lsr, s64
+from repro_torch.kernels.mwc.ops import mwc as mwc_words
 from repro_torch.rng.sources import register_generator
 
 GOLDEN = 0x9E3779B97F4A7C15
@@ -276,24 +280,23 @@ def minstd_block(seed, stream, n, offset=0, *, device=None):
 
 
 # ---------------------------------------------------------------------------
-# sequential recurrences (host loops over Python ints)
+# multiply-with-carry (the kernels/mwc kernel on cuda)
+
+def mwc_block(seed, stream, n, *, device=None):
+    """Multiply-with-carry (Marsaglia), 32-bit lag-1, from the state
+    ``_mix_seed`` gives. On cuda the ``kernels/mwc`` kernel jumps each
+    thread to its chunk through the prime ``a*2^32 - 1``; on the CPU its
+    plain version, the sequential loop. It takes no offset
+    (``counter_based=False``, as in the reference's registry)."""
+    s = _mix_seed(seed, stream) % (1 << 64)
+    return mwc_words((s >> 32) | 1, (s & MASK32) | 1, n, device)
+
+
+# ---------------------------------------------------------------------------
+# sequential twins (host loops over Python ints)
 
 def _host_words(words, device) -> torch.Tensor:
     return torch.tensor(words, dtype=torch.int64).to(resolve_device(device))
-
-
-def mwc_block(seed, stream, n, *, device=None):
-    """Multiply-with-carry (Marsaglia), 32-bit lag-1. Its carry chain
-    has no cheap jump-ahead, so it is a host loop and takes no offset
-    (the reference runs it as a sequential ``lax.scan``)."""
-    s = _mix_seed(seed, stream) % (1 << 64)
-    x, c = (s >> 32) | 1, (s & MASK32) | 1
-    out = [0] * n
-    for i in range(n):
-        t = 4294957665 * x + c
-        x, c = t & MASK32, t >> 32
-        out[i] = x
-    return _host_words(out, device)
 
 
 def _scan_words(step, state, n, out_fn, device):

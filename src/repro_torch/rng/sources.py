@@ -19,7 +19,7 @@ from typing import Callable, Dict
 
 class OffsetNotSupportedError(ValueError):
     """A non-zero stream offset was asked of a source that cannot seek
-    (``counter_based=False``; ``mwc`` has no cheap jump-ahead)."""
+    (``counter_based=False``: ``mwc``, as the reference declares it)."""
 
 
 def require_offsetable(source, offset, where: str = "stream offset") -> None:
@@ -118,3 +118,12 @@ class GeneratorSource:
         """``n`` words of the (seed, stream) sequence from ``offset``."""
         return switch_block(self.gen_id, seed, stream, n, offset,
                             device=device)
+
+    def uid(self) -> str:
+        """``gen:<name>``: the identity checkpoints pin per position
+        (``repro/rng/sources.py``), the same string in both packages."""
+        return f"gen:{self.name}"
+
+    def digest(self) -> str:
+        """The bare name: the content identity cache keys use."""
+        return self.name

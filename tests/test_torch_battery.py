@@ -336,9 +336,9 @@ def test_golden_is_the_reference_cli_output(ref):
 
 
 def test_unported_flags_are_refused():
-    for argv in (["--ckpt", "x.ck"], ["--campaign"], ["--serve"],
+    for argv in (["--campaign"], ["--serve"],
                  ["--inject", "plan.json"], ["--resize-at", "1:2"],
-                 ["--source", "file:x.npy"], ["--verdict-engine", "evalue"]):
+                 ["--source", "file:x.npy"], ["--register", "pkg.mod:fn"]):
         with pytest.raises(SystemExit) as exc:
             cli.main(argv + ["--device", "cpu"])
         assert exc.value.code == 2, argv

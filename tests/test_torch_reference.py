@@ -134,6 +134,44 @@ def combined_tolerance(combine, parts) -> tuple:
             ATOL + RTOL * abs(p0) + max(abs(p - p0) for _, p in ends))
 
 
+def log_wealth_tolerance(parts, calibrator="mixture", kappa=0.5,
+                         p_tol=None) -> float:
+    """Absolute tolerance on a generator's e-value log-wealth, the sum of
+    its tests' log e-values ``log F(two_sided_p(p))``
+    (``repro_torch.core.evidence``), from the reference's per-test
+    results ``parts = [(kname, params, stat, p), ...]``.
+
+    Each test's p may differ from the reference's by its ``p_tolerance``
+    (the reference evaluates p in float32, the port in float64), and its
+    log e-value moves with it by at most
+    ``|d log F(two_sided_p(p))/dp| * p_tolerance`` to first order. The
+    bound here is that product taken exactly: ``two_sided_p`` is
+    monotone on each side of 1/2 and the calibrator is monotone in its
+    argument, so over ``[p - tol, p + tol]`` (clipped to [0, 1]) the log
+    e-value is extreme at an end or at 1/2, and the bound is the larger
+    distance from the reference's value to those. The tolerance is the
+    sum of the tests' bounds, each plus the contract (atol 1e-7 + rtol
+    1e-5) for the port's own rounding. Tests without a p (held, or not
+    run) add nothing. ``p_tol(kname, params, stat, p)`` replaces
+    ``p_tolerance`` where both sides are the port's (two backends)."""
+    from repro_torch.core import evidence
+
+    def log_e(p):
+        return evidence.log_evalue(evidence.two_sided_p(p), calibrator,
+                                   kappa)
+    total = 0.0
+    for kname, params, stat, p in parts:
+        if p is None or not np.isfinite(p) or not 0.0 <= p <= 1.0:
+            continue
+        tol = (p_tol or p_tolerance)(kname, params, stat, p)
+        lo, hi = max(p - tol, 0.0), min(p + tol, 1.0)
+        ends = [lo, hi] + ([0.5] if lo <= 0.5 <= hi else [])
+        le = log_e(p)
+        total += (ATOL + RTOL * abs(le)
+                  + max(abs(log_e(q) - le) for q in ends))
+    return total
+
+
 def assert_stat_p(kname, params, ref, got, what="", stat_atol=ATOL):
     """(stat, p) parity: stat within the contract (rtol 1e-5, atol
     ``stat_atol``), p within ``p_tolerance``."""
@@ -260,8 +298,86 @@ def _task_cli(task, save):
     return {"exit_code": code}
 
 
+def _ckpt_fields(ck, save):
+    return {"version": int(ck.version), "job_idx": save(ck.job_idx),
+            "stats": save(ck.stats), "ps": save(ck.ps),
+            "decisions": (None if ck.decisions is None
+                          else [int(d) for d in ck.decisions]),
+            "rounds_run": int(ck.rounds_run), "alpha": ck.alpha,
+            "source_uids": (None if ck.source_uids is None
+                            else [u.decode() for u in ck.source_uids]),
+            "engine": ck.engine,
+            "log_wealth": (None if ck.log_wealth is None
+                           else [float(x) for x in ck.log_wealth])}
+
+
+def _task_ckpt(task, save):
+    """Reference runs that write or resume a checkpoint, and reference
+    loads of checkpoint files. Each of ``task["runs"]`` is ``{"spec":
+    RunSpec keywords, "path": checkpoint path or None, "rounds": polls
+    before stopping, or None to run to the end}``; ``task["load"]`` lists
+    files to read with the reference's ``Checkpoint.load``."""
+    from repro.core.api import Checkpoint, PoolSession, RunSpec
+    session = PoolSession()
+    runs = []
+    for run in task.get("runs", []):
+        kw = dict(run["spec"])
+        for key in ("generators", "seeds"):
+            if isinstance(kw.get(key), list):
+                kw[key] = tuple(kw[key])
+        spec = RunSpec(checkpoint_path=run["path"], **kw)
+        handle = session.submit(spec)
+        status = handle.status()
+        out = {"jobs_done_at_submit": status["jobs_done"],
+               "rounds_at_submit": handle.rounds_run}
+        if run["rounds"] is None:
+            res = handle.result()
+            gens = res.runs if hasattr(res, "runs") else {
+                spec.generators[0]: res}
+            out["results"] = {g: {str(k): list(v)
+                                  for k, v in r.results.items()}
+                              for g, r in gens.items()}
+            out["verdicts"] = {g: r.verdict.decision
+                               for g, r in gens.items()}
+            out["log_wealth"] = {g: getattr(r.verdict, "log_wealth", None)
+                                 for g, r in gens.items()}
+        else:
+            for _ in range(run["rounds"]):
+                handle.poll()
+        out["rounds_run"] = handle.rounds_run
+        out["plan_rounds"] = handle.plan_rounds
+        out["job_results"] = [{str(k): list(v) for k, v in r.items()}
+                              for r in handle._results]
+        runs.append(out)
+    return {"runs": runs,
+            "loads": [_ckpt_fields(Checkpoint.load(p), save)
+                      for p in task.get("load", [])]}
+
+
+def _task_sequential(task, save):
+    """The reference's stock-TestU01 baseline (``pool.run_sequential``)
+    and whole-plan runner (``pool.make_batch_runner``, one worker, the
+    LPT plan) on one generator."""
+    from repro.core.battery import build_battery
+    from repro.core.pool import make_batch_runner, run_sequential
+    from repro.core.scheduler import make_plan
+    from repro.launch.mesh import make_pool_mesh
+    from repro.rng.sources import GEN_IDS
+    entries = build_battery(task["battery"], task["scale"])
+    seed, gid = np.int32(task["seed"]), np.int32(GEN_IDS[task["generator"]])
+    stats, ps = run_sequential(entries, seed, gid)
+    plan = make_plan([e.cost for e in entries], 1, "lpt").assignment
+    b_stats, b_ps = make_batch_runner(entries, make_pool_mesh(1))(
+        np.asarray(plan), seed, gid)
+    return {"stats": save(np.asarray(stats)), "ps": save(np.asarray(ps)),
+            "plan": np.asarray(plan).tolist(),
+            "batch_stats": save(np.asarray(b_stats)),
+            "batch_ps": save(np.asarray(b_ps))}
+
+
 _TASKS = {"words": _task_words, "families": _task_families,
-          "tables": _task_tables, "pool": _task_pool, "cli": _task_cli}
+          "tables": _task_tables, "pool": _task_pool, "cli": _task_cli,
+          "ckpt": _task_ckpt, "sequential": _task_sequential}
 
 
 def _main(spec_path: str, out_dir: str) -> None:

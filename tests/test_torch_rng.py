@@ -8,6 +8,9 @@ import torch
 from test_torch_reference import run_reference
 
 from repro_torch.common import ints
+from repro_torch.kernels.mwc import kernel as mwc_kernel
+from repro_torch.kernels.mwc.ops import mwc as mwc_words
+from repro_torch.kernels.mwc.ref import mwc_ref
 from repro_torch.rng import generators as G
 from repro_torch.rng import sources as S
 
@@ -19,6 +22,12 @@ NAMES = ("splitmix64", "msweyl", "threefry", "pcg32", "lcg64",
 # non-multiple of the xorshift lane length
 CASES = [(7, 3, 1000, None), (0, 0, 64, None), (123456, 77, 300, 5),
          (7, 3, 500, 500), (7, 3, 257, (1 << 32) - 100), (5, 9, 129, 63)]
+# mwc (seed, stream) pairs, found by search, whose start carry
+# c0 = (mix mod 2^32) | 1 is >= a = 4294957665 (c0 = a + 2 and c0 = a):
+# there the first state z0 = c0*2^32 + x0 is not below the prime
+# a*2^32 - 1 that the kernel jumps with
+MWC_WIDE_CARRY = [(131490111, 0), (2010969873, 1)]
+MWC_A = mwc_kernel.MWC_A
 
 
 def _cases():
@@ -28,6 +37,8 @@ def _cases():
             if name == "mwc" and off is not None:
                 continue
             out.append((name, seed, stream, n, off))
+    out += [("mwc", seed, stream, 300, None)
+            for seed, stream in MWC_WIDE_CARRY]
     return out
 
 
@@ -145,3 +156,122 @@ def test_ints_against_numpy_unsigned():
         ints.to_unit(tw).numpy(),
         (w >> 8).astype(np.float32) * np.float32(1.0 / (1 << 24)))
     assert ints.s64(2 ** 64 - 1) == -1 and ints.s64(2 ** 63) == -2 ** 63
+
+
+# -- mwc: the kernel's jump-ahead, modelled in pure Python
+
+
+def _mwc_state(seed, stream):
+    s = G._mix_seed(seed, stream) % (1 << 64)
+    return (s >> 32) | 1, (s & ints.MASK32) | 1
+
+
+def _mwc_by_jumps(x0, c0, n, chunk):
+    """The kernel's arithmetic (``mwc.cu``) with Python ints: chunk 0 by
+    the loop's own steps from (x0, c0); chunk j >= 1 from
+    z_{j*chunk+1} = A^j * (z_1 mod P) mod P, A^j as the product of the
+    ``jump_powers`` table's entries for the bits of j."""
+    p = mwc_kernel.MWC_P
+    pows = mwc_kernel.jump_powers(chunk)
+    z1 = (MWC_A * x0 + c0) % p
+    out = []
+    for j in range(-(-n // chunk)):
+        if j == 0:
+            x, c, words = x0, c0, []
+        else:
+            z = z1
+            for b in range(j.bit_length()):
+                if j >> b & 1:
+                    z = z * pows[b] % p
+            assert z < p
+            x, c, words = z & ints.MASK32, z >> 32, [z & ints.MASK32]
+        while len(words) < min(chunk, n - j * chunk):
+            t = MWC_A * x + c
+            x, c = t & ints.MASK32, t >> 32
+            words.append(x)
+        out += words
+    return out
+
+
+def _is_prime(m):
+    """Deterministic Miller-Rabin for m < 3.3e24."""
+    d, r = m - 1, 0
+    while d % 2 == 0:
+        d, r = d // 2, r + 1
+    for a in (2, 3, 5, 7, 11, 13, 17, 19, 23, 29, 31, 37, 41):
+        x = pow(a, d, m)
+        if x in (1, m - 1):
+            continue
+        for _ in range(r - 1):
+            x = x * x % m
+            if x == m - 1:
+                break
+        else:
+            return False
+    return True
+
+
+def test_mwc_modulus_is_a_prime_below_2_64():
+    """The jump works modulo P = a*2^32 - 1, a prime that fits 64 bits;
+    the table holds A^(2^i) for A = a^CHUNK."""
+    p = mwc_kernel.MWC_P
+    assert p == MWC_A * (1 << 32) - 1 and p < 1 << 64 and _is_prime(p)
+    pows = mwc_kernel.jump_powers()
+    assert len(pows) == mwc_kernel.JUMP_BITS
+    assert pows[0] == pow(MWC_A, mwc_kernel.CHUNK, p)
+    assert all(pows[i + 1] == pows[i] ** 2 % p for i in range(len(pows) - 1))
+
+
+@pytest.mark.parametrize("chunk", [1, 2, 7, 64])
+def test_mwc_jump_arithmetic_equals_the_loop(chunk):
+    """The kernel's jumps give the loop's words, also from states whose
+    carry is >= a (z0 above P) and from the largest x0 (where
+    z1 = a*x0 + c0 can pass P too), at lengths around chunk edges."""
+    rng = np.random.default_rng(chunk)
+    states = [_mwc_state(*pair) for pair in MWC_WIDE_CARRY]
+    states += [((1 << 32) - 1, MWC_A), ((1 << 32) - 1, (1 << 32) - 1),
+               ((1 << 32) - 1, MWC_A + 2), (1, 1)]
+    states += [(int(x) | 1, int(c) | 1)
+               for x, c in rng.integers(0, 1 << 32, size=(4, 2))]
+    for x0, c0 in states:
+        for n in sorted({1, 2, chunk - 1, chunk, chunk + 1, 3 * chunk + 2,
+                         200} - {0}):
+            want = mwc_ref(x0, c0, n, "cpu").tolist()
+            assert _mwc_by_jumps(x0, c0, n, chunk) == want, (x0, c0, n)
+
+
+def test_mwc_wide_carry_pairs_are_wide():
+    for pair in MWC_WIDE_CARRY:
+        assert _mwc_state(*pair)[1] >= MWC_A
+
+
+def test_mwc_block_on_cpu_is_the_plain_loop():
+    """On the CPU ``mwc_block`` is ``ref.py``'s loop from the mixed
+    seed; the launcher refuses a CPU device."""
+    for seed, stream in [(7, 3)] + MWC_WIDE_CARRY:
+        x0, c0 = _mwc_state(seed, stream)
+        assert torch.equal(G.mwc_block(seed, stream, 333, device="cpu"),
+                           mwc_ref(x0, c0, 333, "cpu"))
+        assert torch.equal(mwc_words(x0, c0, 333, "cpu"),
+                           mwc_ref(x0, c0, 333, "cpu"))
+    with pytest.raises(ValueError, match="CUDA"):
+        mwc_kernel.mwc_words(1, 1, 8, "cpu")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the mwc kernel)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 63, 64, 65, (1 << 10) + 3, 1 << 20])
+def test_mwc_kernel_matches_plain_on_card(cuda, n):
+    """The kernel equals the loop word for word, also where c0 >= a."""
+    states = [_mwc_state(7, 3), ((1 << 32) - 1, MWC_A)]
+    states += [_mwc_state(*pair) for pair in MWC_WIDE_CARRY]
+    for x0, c0 in states:
+        got = mwc_kernel.mwc_words(x0, c0, n, cuda)
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), mwc_ref(x0, c0, n, "cpu")), (x0, c0)
