@@ -65,22 +65,51 @@ Phases, one line each (details in ``reports/chip_smoke/chip_smoke.json``):
    kernel and once with the model's attention rebound to the plain
    version: last-position logits within SERVE_LOGITS_ATOL and all greedy
    tokens equal. The bfloat16 run is repeated with the plain version and
-   the first step where the tokens differ is reported (not checked).
+   the first step where the tokens differ is reported (not checked);
+8. captured bitstreams: splitmix64 captured on the card by
+   ``capture_generator`` (106 shards x 2^20 words, 0.44 GB ``.npy`` in a
+   temporary directory, deleted at the end: what BigCrush x1.0 reads),
+   then BigCrush x1.0 of ``--gen randu --source file:...`` accelerated:
+   the capture's every (stat, p) bitwise phase 4's splitmix64, randu
+   FAIL, the host prefetch ms and bytes copied to the card per round,
+   and the kernels' launches; the same command with ``--ckpt`` killed
+   and resumed (bitwise), then resumed against a copy of the capture
+   with one byte changed, which must be refused;
+9. a generator-fleet campaign: 8 generators x 4 sub-streams of BigCrush
+   at waves 0.25 and 1.0 after the seam phase (the reference's 8 x 4
+   acceptance grid at full scale), phase by phase with wall time,
+   rounds, cells knocked out and launches per phase; at most one runner
+   build per phase; randu knocked out before the last wave; the same
+   campaign on ``--backend reference``: the same decisions and decided
+   phases, every (stat, p) within the contract; one warm x0.25 wave of
+   one sub-stream per generator (8 cells) under torch.profiler, the
+   device traced alone (device busy, idle share, top kernels); the CLI
+   killed by SIGKILL once its ledger holds a phase,
+   resumed to the same matrix, then run a third time (``rounds=0``);
+   the CLI under ``--verdict-engine evalue``; and the capture cut to 2
+   sub-streams at the default span of a x0.25 wave, screened beside
+   splitmix64: its cells decided as splitmix64's.
 
 Phase 3 times every kernel at the shapes the main paths gave it (BigCrush
 for the battery kernels and mwc, phase 6 for flash attention).
 
 Any failure raises, and the script exits non-zero without a result line.
-The last three lines are the kernels' JSON, the card, and
+The kernels' JSON adds each kernel's launches in phases 8 and 9
+(``launches_captured_bigcrush``, ``launches_campaign``) beside those of
+the main path. The last three lines are the kernels' JSON, the card, and
 ``{"ok": true, "device": {...}}``.
 """
+import contextlib
 import dataclasses
+import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -127,6 +156,17 @@ MWC_SEEDS = [(7, 3), (42, 0), (123456, 77), (131490111, 0), (2010969873, 1)]
 MWC_ALL_STATES = 1 << 20
 MWC_ARGS = ["--battery", "bigcrush", "--gen", "mwc,splitmix64", "--scale",
             "1.0", "--seed", "7"]
+# phase 8: splitmix64 captured at the size BigCrush x1.0 reads (106 jobs,
+# widest bucket 2^20 words), 0.44 GB, in a temporary directory
+CAPTURE_SEED = 7
+CAPTURE_SHARDS = 106
+CAPTURE_STRIDE = 1 << 20
+CAPTURED_ARGS = ["--battery", "bigcrush", "--gen", "randu", "--scale", "1.0"]
+# phase 9: the reference's 8 x 4 acceptance grid at BigCrush's size
+CAMPAIGN_ARGS = ["--campaign", "--battery", "bigcrush", "--gen",
+                 "splitmix64,pcg32,threefry,lcg64,xorshift64s,msweyl,randu,"
+                 "minstd", "--streams", "4", "--waves", "0.25,1.0",
+                 "--seed", "7"]
 # families whose float path was seen not to repeat bit for bit on the card
 # (ROADMAP queue 3): only these are held to the parity tolerance, by name,
 # when a resumed run is compared with an uninterrupted one
@@ -481,18 +521,22 @@ def greedy(params, prompts, cfg, gen_len):
     return first, out, t1 - t0, t2 - t1
 
 
-def device_busy(fn):
+def device_busy(fn, cpu=True):
     """Device busy ms of one call of ``fn`` (sum of its kernels' device
     time under torch.profiler; one stream, so they do not overlap), the
     flash-attention kernels' share of it (both routes: ``fa_wgmma``,
     ``fa_fwd``), the count and device ms of every kernel by name, most
-    first, and the five that took the most."""
+    first, and the five that took the most. ``cpu=False`` traces the
+    device alone: a run of a million kernels then takes minutes, not
+    many, to trace."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if cpu:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
@@ -536,16 +580,22 @@ def launch_counts():
 
 
 def run_cli(name, args, backend, codes=(1,)):
-    """One main-path run through the CLI; returns its JSON report."""
+    """One main-path run through the CLI, in this process; returns its JSON
+    report, with its standard output (also in ``OUT_DIR/<name>.log``)."""
     from repro_torch.launch import battery as cli
     path = os.path.join(OUT_DIR, f"{name}_{backend}.json")
+    out = io.StringIO()
     t0 = time.perf_counter()
-    code = cli.main(args + ["--backend", backend, "--json", path])
+    with contextlib.redirect_stdout(out):
+        code = cli.main(args + ["--backend", backend, "--json", path])
     wall = time.perf_counter() - t0
+    with open(os.path.join(OUT_DIR, f"{name}_{backend}.log"), "w") as f:
+        f.write(out.getvalue())
     check(code in codes, f"{name}/{backend}: exit {code}, want {codes}")
     with open(path) as f:
         rep = json.load(f)
     rep["_wall_s"] = wall
+    rep["_out"] = out.getvalue()
     return rep
 
 
@@ -587,19 +637,18 @@ def compare_runs(a, b, what, tol):
                                  f"{tb['stat']}/{tb['p']}")
 
 
-def run_proc(name, args, ckpt, kill_at=None):
-    """The battery CLI in a subprocess with ``--ckpt ckpt``; with
-    ``kill_at``, SIGKILLed once the checkpoint holds at least ``kill_at``
-    job ids (read after each progress line). Returns the exit code, the
-    standard output, the JSON report (None when killed) and the seconds
-    it ran."""
+def run_proc(name, args, ckpt, kill_when=None, flag="--ckpt"):
+    """The battery CLI in a subprocess with ``--ckpt ckpt`` (or ``flag``:
+    ``--ledger`` for a campaign); with ``kill_when``, SIGKILLed once it
+    returns true (asked after each progress line). Returns the exit code,
+    the standard output, the JSON report (None when killed or failed) and
+    the seconds it ran."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     path = os.path.join(OUT_DIR, f"{name}.json")
     if os.path.exists(path):
         os.remove(path)
     cmd = [sys.executable, "-m", "repro_torch.launch.battery", *args,
-           "--ckpt", ckpt, "--json", path]
-    from repro_torch.core.api import Checkpoint
+           flag, ckpt, "--json", path]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True, bufsize=1)
@@ -607,8 +656,8 @@ def run_proc(name, args, ckpt, kill_at=None):
     try:
         for line in proc.stdout:
             lines.append(line)
-            if (kill_at and line.lstrip().startswith("round ")
-                    and len(Checkpoint.load(ckpt).job_idx) >= kill_at):
+            if (kill_when and line.lstrip().startswith("round ")
+                    and kill_when()):
                 proc.kill()
                 break
         proc.wait(timeout=600)
@@ -671,8 +720,9 @@ def kill_and_resume(name, args, n_jobs):
     ckpt = os.path.join(OUT_DIR, f"{name}.ck")
     if os.path.exists(ckpt):
         os.remove(ckpt)
-    code, _, _, secs = run_proc(f"{name}_killed", args, ckpt,
-                                kill_at=-(-n_jobs // 3))
+    code, _, _, secs = run_proc(
+        f"{name}_killed", args, ckpt,
+        lambda: len(Checkpoint.load(ckpt).job_idx) >= -(-n_jobs // 3))
     saved = len(Checkpoint.load(ckpt).job_idx)
     check(code == -9, f"{name}: the first run exited {code} before the kill")
     check(-(-n_jobs // 3) <= saved < n_jobs,
@@ -681,6 +731,333 @@ def kill_and_resume(name, args, n_jobs):
           f"{n_jobs} job ids in the checkpoint", flush=True)
     code, out, rep, secs = run_proc(f"{name}_resumed", args, ckpt)
     return saved, code, out, rep, ckpt, secs
+
+
+def parse_prefetch(out):
+    """``captured_rounds``, ``prefetch_ms`` and ``h2d_bytes`` of a CLI
+    run's summary line."""
+    tail = [ln for ln in out.splitlines() if " captured_rounds=" in ln][-1]
+    fields = dict(tok.split("=") for tok in tail.split() if "=" in tok)
+    return (int(fields["captured_rounds"]), float(fields["prefetch_ms"]),
+            int(fields["h2d_bytes"]))
+
+
+def captured_phase(tmp, big_ref, big_entries, card):
+    """Phase 8: splitmix64 captured on the card at BigCrush x1.0's size
+    (106 shards x 2^20 words), BigCrush x1.0 over the capture beside
+    randu, bitwise against phase 4's splitmix64; killed with --ckpt and
+    resumed bitwise; a one-byte-modified copy refused on resume. Returns
+    (details, the capture's path)."""
+    from repro_torch.rng.sources import capture_generator, resolve_source
+    path = os.path.join(tmp, "sm64_s7.npy")
+    t0 = time.perf_counter()
+    capture_generator("splitmix64", path, seed=CAPTURE_SEED,
+                      n_streams=CAPTURE_SHARDS, stride=CAPTURE_STRIDE)
+    cap_s = time.perf_counter() - t0
+    src = resolve_source(f"file:{path}")
+    t0 = time.perf_counter()
+    uid = src.uid()
+    digest_s = time.perf_counter() - t0
+    size = os.path.getsize(path)
+    print(f"[captured] splitmix64 seed {CAPTURE_SEED} captured on cuda: "
+          f"{CAPTURE_SHARDS} shards x {CAPTURE_STRIDE} words, {size} B in "
+          f"{cap_s:.2f}s; uid {uid} (sha256 of the file {digest_s:.2f}s)",
+          flush=True)
+    args = CAPTURED_ARGS + ["--source", f"file:{path}", "--seed",
+                            str(CAPTURE_SEED)]
+    zero_counts()
+    rep = run_cli("captured_bigcrush", args, "accelerated")
+    launches = launch_counts()
+    check(launches["histogram"] and launches["gf2_rank"],
+          f"captured bigcrush: a kernel was not launched {launches}")
+    runs = rep["runs"]
+    check(runs["randu"]["verdict"] == "FAIL",
+          f"captured bigcrush: randu {runs['randu']['verdict']}")
+    want = big_ref["runs"]["splitmix64"]
+    check(runs[src.name]["verdict"] == want["verdict"],
+          f"captured bigcrush: the capture's verdict "
+          f"{runs[src.name]['verdict']} != splitmix64's {want['verdict']}")
+    for ta, tb in zip(runs[src.name]["tests"], want["tests"]):
+        check((ta["stat"], ta["p"]) == (tb["stat"], tb["p"]),
+              f"captured bigcrush {ta['name']}: {ta['stat']!r}/{ta['p']!r} "
+              f"vs splitmix64 {tb['stat']!r}/{tb['p']!r}")
+    check(rep["sources"] == [{"spec": f"file:{path}", "uid": uid}],
+          f"captured bigcrush: sources key {rep['sources']}")
+    rounds, prefetch_ms, h2d = parse_prefetch(rep["_out"])
+    print(f"[captured] bigcrush x1.0, randu + the capture, accelerated on "
+          f"cuda ({card}): every (stat, p) of the capture bitwise phase "
+          f"4's splitmix64, randu FAIL | wall {rep['_wall_s']:.2f}s, "
+          f"{rounds} captured rounds, host prefetch {prefetch_ms:.1f} ms "
+          f"({prefetch_ms / rounds:.3f} ms a round), {h2d} B to the card "
+          f"({h2d / rounds:.0f} B a round), launches {launches}",
+          flush=True)
+    n_jobs = len(big_entries)
+    cargs = args + ["--backend", "accelerated"]
+    saved, code, out, resumed, ckpt, secs = kill_and_resume(
+        "resume_captured", cargs, n_jobs)
+    check(code == 1 and resumed is not None,
+          f"resumed captured bigcrush: exit {code}")
+    check(rounds_line(out)[0] == n_jobs - saved,
+          f"resumed captured bigcrush ran {rounds_line(out)} rounds for "
+          f"{n_jobs - saved} missing jobs")
+    compare_bitwise(resumed, rep, "resumed captured bigcrush", big_entries)
+    resumed_rounds = rounds_line(out)
+    print(f"[captured] killed with {saved} of {n_jobs} job ids saved, "
+          f"resumed in {secs:.1f}s (rounds={resumed_rounds}): every "
+          f"(stat, p) bitwise the uninterrupted run's", flush=True)
+    mod_dir = os.path.join(tmp, "modified")
+    os.makedirs(mod_dir)
+    mod = os.path.join(mod_dir, os.path.basename(path))
+    shutil.copyfile(path, mod)
+    with open(mod, "r+b") as f:
+        f.seek(-1, os.SEEK_END)
+        last = f.read(1)[0]
+        f.seek(-1, os.SEEK_END)
+        f.write(bytes([last ^ 0xFF]))
+    margs = [f"file:{mod}" if a == f"file:{path}" else a for a in cargs]
+    code, out, refused, _ = run_proc("resume_captured_modified", margs, ckpt)
+    check(code != 0 and refused is None and "re-captured" in out,
+          f"a one-byte-modified copy of the capture was not refused on "
+          f"resume (exit {code})")
+    print(f"[captured] a copy of the capture with its last byte changed, "
+          f"same stem: resume refused (exit {code}, 're-captured')",
+          flush=True)
+    return {"capture_s": cap_s, "bytes": size, "uid": uid,
+            "digest_s": digest_s, "wall_s": rep["_wall_s"],
+            "launches": launches, "captured_rounds": rounds,
+            "prefetch_ms": prefetch_ms, "h2d_bytes": h2d,
+            "saved_at_kill": saved, "resumed_rounds": resumed_rounds}, path
+
+
+def drive_campaign(spec, session):
+    """Run a campaign phase by phase (``Campaign.run_next_phase``); per
+    phase its wall time, cells, rounds, cells knocked out and kernel
+    launches (counts zeroed just before the phase). Returns (campaign,
+    result, phase records)."""
+    import numpy as np
+    import torch
+    from repro_torch.core.api import CELL_FAIL
+    from repro_torch.core.campaign import Campaign
+    camp = Campaign(session, spec)
+    records, t_all = [], time.perf_counter()
+    while not camp.complete:
+        k = camp.ledger.phases_done
+        before = np.asarray(camp.ledger.decisions).copy()
+        logged = len(camp.phase_log)
+        zero_counts()
+        t0 = time.perf_counter()
+        check(camp.run_next_phase(), f"campaign phase {k} did not complete")
+        torch.cuda.synchronize()
+        rec = camp.phase_log[-1] if len(camp.phase_log) > logged else None
+        records.append({
+            "phase": k, "name": camp.phases()[k].name,
+            "wall_s": time.perf_counter() - t0,
+            "cells": len(rec["groups"]) if rec else 0,
+            "pad": rec["pad"] if rec else 0,
+            "rounds": rec["rounds"] if rec else 0,
+            "knocked": int(np.sum((np.asarray(camp.ledger.decisions)
+                                   == CELL_FAIL) & (before != CELL_FAIL))),
+            "launches": launch_counts()})
+    return camp, camp.result_snapshot(time.perf_counter() - t_all), records
+
+
+def print_campaign(label, res, records, session, card):
+    for r in records:
+        print(f"[campaign] {label} phase {r['phase']} ({r['name']}): "
+              f"{r['cells']} cell(s) +{r['pad']} pad, {r['rounds']} rounds, "
+              f"{r['wall_s']:.2f}s, knocked out {r['knocked']}, launches "
+              f"{r['launches']}", flush=True)
+    print(f"[campaign] {label} on cuda ({card}): {res.wall_s:.2f}s, "
+          f"{res.rounds_run} rounds, {session.total_traces} runner builds "
+          f"for {len(res.phase_names)} phases; survivors "
+          f"{len(res.survivors)}, knockouts {len(res.knockouts)}",
+          flush=True)
+
+
+def compare_phase_results(a, b, what):
+    """Two campaigns' per-phase results (``Campaign.phase_log``): the same
+    phases, cells and tests; stat within rtol 1e-5 / atol 1e-7, p within
+    atol 1e-7 + rtol 1e-5 (the contract between the port's backends).
+    Returns the number of tests compared."""
+    check([(r["phase"], r["groups"]) for r in a]
+          == [(r["phase"], r["groups"]) for r in b],
+          f"{what}: the phases ran other cells")
+    n = 0
+    for ra, rb in zip(a, b):
+        for ca, cb in zip(ra["results"], rb["results"]):
+            check(set(ca) == set(cb), f"{what} phase {ra['phase']}: other "
+                                      f"tests ran")
+            for k, (sa, pa) in ca.items():
+                sb, pb = cb[k]
+                check(math.isclose(sa, sb, rel_tol=1e-5, abs_tol=1e-7)
+                      and abs(pa - pb) <= 1e-7 + 1e-5 * abs(pb),
+                      f"{what} phase {ra['phase']} test {k}: {sa}/{pa} vs "
+                      f"{sb}/{pb}")
+                n += 1
+    return n
+
+
+def campaign_phase(cap_path, card):
+    """Phase 9: the 8 x 4 BigCrush campaign at waves 0.25, 1.0 with the
+    seam phase, accelerated against --backend reference, and one
+    profiled warm wave; the CLI killed by SIGKILL after its first phase,
+    resumed, and run a third time (rounds=0); the CLI under the e-value
+    engine; a captured campaign of 2 sub-streams against splitmix64's."""
+    import numpy as np
+    from repro_torch.core.api import CampaignLedger, CampaignSpec, PoolSession
+    from repro_torch.core.campaign import default_span
+    def arg(flag):
+        return CAMPAIGN_ARGS[CAMPAIGN_ARGS.index(flag) + 1]
+    battery, gens = arg("--battery"), tuple(arg("--gen").split(","))
+    waves = tuple(float(w) for w in arg("--waves").split(","))
+    spec = CampaignSpec(battery, gens, n_streams=int(arg("--streams")),
+                        seed=int(arg("--seed")), waves=waves,
+                        backend="accelerated")
+    session = PoolSession(device="cuda")
+    camp, res, records = drive_campaign(spec, session)
+    print_campaign(f"{len(gens)} x {spec.n_streams} {battery} accelerated",
+                   res, records, session, card)
+    print(res.report, flush=True)
+    n_phases = len(res.phase_names)
+    check(res.phase_names == ["streamcheck"] + [f"x{w:g}" for w in waves],
+          f"campaign phases {res.phase_names}")
+    check(session.total_traces <= n_phases,
+          f"campaign: {session.total_traces} runner builds > {n_phases} "
+          f"phases")
+    for name in ("histogram", "gf2_rank"):
+        check(sum(r["launches"][name] for r in records
+                  if r["name"] != "streamcheck"),
+              f"campaign: {name} was not launched by the grid runner")
+    mat = res.matrix
+    randu = gens.index("randu")
+    check(set(mat[randu].tolist()) == {2}
+          and int(res.decided_phase.reshape(mat.shape)[randu].max())
+          < n_phases - 1,
+          f"campaign: randu's cells {mat[randu].tolist()} decided at "
+          f"{res.decided_phase.reshape(mat.shape)[randu].tolist()}, not all "
+          f"knocked out before the last wave")
+    check(not np.any(mat == 0), "campaign: undecided cells")
+
+    ref_session = PoolSession(device="cuda")
+    ref_camp, ref_res, ref_records = drive_campaign(
+        dataclasses.replace(spec, backend="reference"), ref_session)
+    print_campaign(f"{len(gens)} x {spec.n_streams} {battery} reference",
+                   ref_res, ref_records, ref_session, card)
+    check(res.decisions.tolist() == ref_res.decisions.tolist()
+          and res.decided_phase.tolist() == ref_res.decided_phase.tolist(),
+          "campaign: accelerated and reference backends decide differently")
+    n_tests = compare_phase_results(camp.phase_log, ref_camp.phase_log,
+                                    "campaign accelerated vs reference")
+    print(f"[campaign] --backend reference: the same decisions and decided "
+          f"phases; {n_tests} (stat, p) within the contract", flush=True)
+
+    # one warm x0.25 wave of one sub-stream per generator (8 cells, a
+    # quarter of the grid: a device trace of the 32-cell wave's million
+    # kernels takes minutes), without the seam phase: its wall time, then
+    # the same under torch.profiler
+    wave = dataclasses.replace(spec, waves=waves[:1], n_streams=1,
+                               stream_check=False)
+    _, wave_res, _ = drive_campaign(wave, session)
+    t0 = time.perf_counter()
+    prof = device_busy(lambda: drive_campaign(wave, session), cpu=False)
+    prof["trace_s"] = time.perf_counter() - t0
+    warm = wave_res.wall_s * 1e3
+    prof["wall_ms"] = warm
+    prof["idle_share"] = max(0.0, 1 - prof["busy_ms"] / warm)
+    top = ", ".join(f"{k[:70]} x{c} {t:.2f} ms" for k, c, t in prof["top"])
+    print(f"[campaign] profile of a warm x{waves[0]:g} wave of "
+          f"{wave.n_cells} cells (device trace, {prof['trace_s']:.1f}s): "
+          f"{prof['kernels']} device kernels, device busy "
+          f"{prof['busy_ms']:.2f} ms of {warm:.1f} ms warm wall (idle share "
+          f"{prof['idle_share']:.1%}); top: {top}", flush=True)
+
+    # the CLI, killed once its ledger holds a phase, run again, and again
+    ledger = os.path.join(OUT_DIR, "campaign.ledger")
+    for stale in (ledger, ledger + ".phase1", ledger + ".phase2"):
+        if os.path.exists(stale):
+            os.remove(stale)
+    args = CAMPAIGN_ARGS + ["--backend", "accelerated"]
+
+    def one_phase_done():
+        return (os.path.exists(ledger)
+                and CampaignLedger.load(ledger).phases_done >= 1)
+    code, _, _, secs = run_proc("campaign_killed", args, ledger,
+                                flag="--ledger", kill_when=one_phase_done)
+    done = CampaignLedger.load(ledger).phases_done
+    check(code == -9 and 1 <= done < n_phases,
+          f"campaign CLI: exit {code} with {done} phases in the ledger")
+    code, out, rep, secs2 = run_proc("campaign_resumed", args, ledger,
+                                     flag="--ledger")
+    check(code == 0 and rep is not None, f"resumed campaign: exit {code}")
+    cells = [(c["decision"], c["phase"]) for c in rep["campaign"]["cells"]]
+    want = [(res.decision(g, s), int(p) if p >= 0 else None)
+            for (g, s), p in zip(res.cells, res.decided_phase)]
+    check(cells == want, "resumed campaign: another matrix than the "
+                         "uninterrupted run's")
+    code, out3, _, secs3 = run_proc("campaign_again", args, ledger,
+                                    flag="--ledger")
+    check(code == 0 and " rounds=0 " in out3,
+          f"third campaign run: exit {code}, no rounds=0")
+    print(f"[campaign] CLI killed after {secs:.1f}s with {done} phase(s) in "
+          f"the ledger, resumed in {secs2:.1f}s to the uninterrupted matrix "
+          f"(rounds={rep['rounds_run']}); a third run: rounds=0 "
+          f"({secs3:.1f}s)", flush=True)
+
+    zero_counts()
+    ev_ledger = os.path.join(OUT_DIR, "campaign_evalue.ledger")
+    if os.path.exists(ev_ledger):
+        os.remove(ev_ledger)
+    ev = run_cli("campaign_evalue", CAMPAIGN_ARGS + [
+        "--verdict-engine", "evalue", "--ledger", ev_ledger], "accelerated",
+        codes=(0,))
+    check("evidence" in ev and all(
+        c["decision"] == "FAIL" for c in ev["campaign"]["cells"]
+        if c["gen"] == "randu"), "evalue campaign: no evidence key, or a "
+                                 "randu cell not FAIL")
+    print(f"[campaign] --verdict-engine evalue: phases "
+          f"{ev['campaign']['phases']}, survivors "
+          f"{ev['campaign']['survivors']}, knockouts "
+          f"{ev['campaign']['knockouts']}, continuations "
+          f"{ev['evidence']['continuations']}, {ev['_wall_s']:.2f}s, "
+          f"launches {launch_counts()}", flush=True)
+
+    # the capture, cut to 2 sub-streams at the default span of a x0.25
+    # wave, beside splitmix64 in one grid
+    span = default_span(CampaignSpec(battery, ("splitmix64",),
+                                     n_streams=2, waves=waves[:1]))
+    cut = os.path.join(os.path.dirname(cap_path), "sm64_s7_2x.npy")
+    np.save(cut, np.ascontiguousarray(
+        np.load(cap_path, mmap_mode="r")[:, :2 * span]))
+    cspec = CampaignSpec(battery, sources=("splitmix64", f"file:{cut}"),
+                         n_streams=2, seed=CAPTURE_SEED, waves=waves[:1],
+                         backend="accelerated")
+    csession = PoolSession(device="cuda")
+    _, cres, crecords = drive_campaign(cspec, csession)
+    print_campaign(f"captured 2-stream x{waves[0]:g}", cres, crecords,
+                   csession, card)
+    cmat, cphase = cres.matrix, cres.decided_phase.reshape(cres.matrix.shape)
+    check(cmat[1].tolist() == cmat[0].tolist()
+          and cphase[1].tolist() == cphase[0].tolist(),
+          f"captured campaign: the capture's cells {cmat[1].tolist()} "
+          f"{cphase[1].tolist()} != splitmix64's {cmat[0].tolist()} "
+          f"{cphase[0].tolist()}")
+    check(sum(r["launches"]["histogram"] for r in crecords),
+          "captured campaign: the histogram was not launched")
+    print(f"[campaign] captured cells (span {span}) decided as splitmix64's: "
+          f"{cmat.tolist()} at phases {cphase.tolist()}", flush=True)
+    launches = {name: sum(r["launches"][name] for r in records)
+                for name in ("histogram", "gf2_rank", "mwc",
+                             "flash_attention")}
+    return {"phases": records, "reference_phases": ref_records,
+            "wall_s": res.wall_s, "rounds": res.rounds_run,
+            "runner_builds": session.total_traces,
+            "decisions": res.decisions.tolist(),
+            "decided_phase": res.decided_phase.tolist(),
+            "wave_profile": prof, "killed_with_phases": done,
+            "evalue": {k: ev[k] for k in ("campaign", "evidence")},
+            "captured": {"span": span, "phases": crecords,
+                         "decisions": cres.decisions.tolist()},
+            "launches": launches}
 
 
 def main():
@@ -1103,6 +1480,21 @@ def main():
              f"checked)"), flush=True)
     del params
 
+    # 8-9. captured bitstreams and a generator-fleet campaign, at full size
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_capture_")
+    try:
+        t0 = time.perf_counter()
+        details["captured"], cap_path = captured_phase(
+            tmp, accel["bigcrush"], big_entries, card)
+        t1 = time.perf_counter()
+        details["campaign"] = campaign_phase(cap_path, card)
+        t2 = time.perf_counter()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    details["phase_s"] = {"captured": t1 - t0, "campaign": t2 - t1}
+    print(f"[time] phase 8 (captured) {t1 - t0:.1f}s, phase 9 (campaign) "
+          f"{t2 - t1:.1f}s, {t0 - t_start:.1f}s before them", flush=True)
+
     # the kernels at the shapes their main paths gave them
     main_calls = calls["bigcrush"]
     shapes = {"histogram": [hist_case(n, k, seed=1) | {"launches": c}
@@ -1149,6 +1541,9 @@ def main():
             "name": name, "route": "cuda", "source": meta[name][0],
             "replaces": meta[name][1],
             "launches": main_launches[name],
+            "launches_captured_bigcrush":
+                details["captured"]["launches"][name],
+            "launches_campaign": details["campaign"]["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in
                                cases + details["parity"][name]),
             "ms": total("ms"), "device_ms": total("device_ms"),

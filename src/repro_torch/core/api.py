@@ -23,9 +23,19 @@ only the missing jobs (the paper's restart after an HTCondor eviction).
 ``verdict_engine`` is ``bonferroni`` (sequential spending) or
 ``evalue`` (anytime-valid e-value wealth, ``core/evidence.py``).
 
-Campaigns, captured sources, elastic resize, fault injection and
-serving are not ported yet; the fields that select them do not exist
-here, and the CLI refuses their flags.
+``RunSpec.sources`` takes captured bitstreams (``CapturedSource``,
+``"file:path[:fmt]"``) beside registered generators: their words are read
+on the host and copied to the device once per round
+(``pool.gather_captured_bits``), and a checkpoint pins each capture's
+content digest. ``RunSpec.offsets`` places each position in its own
+sub-stream (the campaign grid's runner). ``CampaignSpec`` and
+``CampaignLedger`` describe and record a generator-fleet screening
+campaign (``core/campaign.py`` drives it): the ledger is the reference's
+v3 file, which either package resumes.
+
+Elastic resize, fault injection and serving are not ported yet; the
+fields that select them do not exist here, and the CLI refuses their
+flags.
 """
 from __future__ import annotations
 
@@ -40,10 +50,13 @@ from repro_torch.core import stitch
 from repro_torch.core.battery import TestEntry, build_battery
 from repro_torch.core.policies import (RetryBudgetExhausted, RetryPolicy,
                                        SchedulePolicy, get_policy)
-from repro_torch.core.pool import (make_fanout_runner, make_round_runner,
+from repro_torch.core.pool import (gather_captured_bits,
+                                   make_external_runner, make_fanout_runner,
+                                   make_grid_runner, make_round_runner,
                                    word_bucket)
 from repro_torch.core.scheduler import make_plan, replan
-from repro_torch.rng.sources import GeneratorSource
+from repro_torch.rng.sources import (BitSource, registry_size,
+                                     require_offsetable, resolve_source)
 from repro_torch.stats import backends as kernel_backends
 
 BATTERY_SIZES = {"smallcrush": 10, "crush": 96, "bigcrush": 106,
@@ -64,9 +77,14 @@ def emit_progress(progress: Union[bool, Callable], msg: str) -> None:
 class RunSpec:
     """Declarative description of one battery run.
 
-    ``generators`` is a name or a tuple of names; ``sources`` is the
-    same positions as ``GeneratorSource``s (or names), and after
-    construction both are set (``generators`` holds the names).
+    ``generators`` is a name or a tuple of names; ``sources`` spells the
+    positions as bit sources (``BitSource`` objects or specs: a
+    generator's name, ``"file:path[:fmt]"`` for a captured file), and
+    after construction both are set (``generators`` holds each source's
+    reporting name). ``offsets`` gives each position a word offset into
+    its (seed, stream) sequences (one value broadcasts); ``None`` is the
+    classic path, and any tuple, zeros included, runs on the grid
+    runner. A non-zero offset needs a counter-based source.
     ``seeds`` broadcasts (one seed for every generator) or pairs
     element-wise. ``checkpoint_path`` saves progress after every round
     and resumes from the file when it exists. ``alpha`` is the
@@ -87,6 +105,7 @@ class RunSpec:
     stop_on_verdict: bool = False
     verdict_engine: str = "bonferroni"
     backend: str = "auto"
+    offsets: Optional[Union[int, Tuple[int, ...]]] = None
     sources: Optional[Tuple] = None
 
     def __post_init__(self):
@@ -96,14 +115,14 @@ class RunSpec:
         if self.sources is not None:
             given = (self.sources if isinstance(self.sources, (tuple, list))
                      else (self.sources,))
-            srcs = tuple(_generator_source(s) for s in given)
+            srcs = tuple(resolve_source(s) for s in given)
             if not srcs:
                 raise ValueError("sources must name at least one source")
             gens = tuple(s.name for s in srcs)
         else:
             gens = ((self.generators,) if isinstance(self.generators, str)
                     else tuple(self.generators)) or ("splitmix64",)
-            srcs = tuple(GeneratorSource(g) for g in gens)   # KeyError
+            srcs = tuple(resolve_source(g) for g in gens)   # KeyError
         seeds = ((self.seeds,) if isinstance(self.seeds, int)
                  else tuple(int(s) for s in self.seeds))
         if len(seeds) == 1:
@@ -115,6 +134,20 @@ class RunSpec:
         object.__setattr__(self, "generators", gens)
         object.__setattr__(self, "seeds", seeds)
         object.__setattr__(self, "sources", srcs)
+        if self.offsets is not None:
+            offs = ((int(self.offsets),) if isinstance(self.offsets, int)
+                    else tuple(int(o) for o in self.offsets))
+            if len(offs) == 1:
+                offs = offs * len(gens)
+            if len(offs) != len(gens):
+                raise ValueError(
+                    f"{len(offs)} offsets for {len(gens)} generators "
+                    "(give one offset, or one per generator)")
+            for src, o in zip(srcs, offs):
+                if o < 0:
+                    raise ValueError(f"offsets must be >= 0, got {o}")
+                require_offsetable(src, o)
+            object.__setattr__(self, "offsets", offs)
         get_policy(self.policy)                  # validate early
         if not (0.0 < self.alpha < 1.0):
             raise ValueError(f"alpha must be in (0, 1), got {self.alpha}")
@@ -128,17 +161,18 @@ class RunSpec:
         """Width of the fan-out axis (generator positions)."""
         return len(self.generators)
 
+    @property
+    def switch_lanes(self) -> int:
+        """``1 + max(gen_id)`` over the generator positions (0 when every
+        position is captured): the registry width the reference's runner
+        keys carry."""
+        ids = [s.gen_id for s in self.sources if not s.captured]
+        return 1 + max(ids) if ids else 0
 
-def _generator_source(src) -> GeneratorSource:
-    """A ``sources`` entry as a ``GeneratorSource``: a registered
-    generator's name or the source itself. Captured bitstreams are not
-    ported."""
-    if isinstance(src, GeneratorSource):
-        return src
-    if isinstance(src, str) and not src.startswith("file:"):
-        return GeneratorSource(src)
-    raise TypeError(f"source {src!r} is not a registered generator; "
-                    f"captured sources are not ported to repro_torch yet")
+    @property
+    def captured_positions(self) -> Tuple[int, ...]:
+        """Positions whose words come from a ``CapturedSource``."""
+        return tuple(g for g, s in enumerate(self.sources) if s.captured)
 
 
 @dataclasses.dataclass
@@ -166,6 +200,16 @@ class BatteryResult:
     rounds_run: int
     retries: int
     wall_s: float
+
+    @property
+    def n_suspect(self) -> int:
+        """Suspect count across every generator's run."""
+        return sum(r.n_suspect for r in self.runs.values())
+
+    @property
+    def verdicts(self) -> Dict[str, stitch.Verdict]:
+        """Per-generator verdicts, keyed by name."""
+        return {g: r.verdict for g, r in self.runs.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -209,9 +253,10 @@ class Checkpoint:
     e-process wealth under the ``evalue`` engine (DESIGN.md §13); it is
     advisory (wealth is recomputed from results on load) but makes the
     trajectory inspectable on disk. ``source_uids`` pins each generator
-    position's source identity (``GeneratorSource.uid()``,
-    ``gen:<name>``; the reference's captured sources embed the file's
-    content digest), so a run of other sources refuses to resume."""
+    position's source identity (``BitSource.uid()``: ``gen:<name>``, or
+    for a capture ``cap:<stem>:<digest16>`` of the file's content), so a
+    run of other sources, or of a re-captured or byte-modified file,
+    refuses to resume."""
     job_idx: np.ndarray                         # (K,) int32 job ids
     stats: np.ndarray                           # (G, K) float64
     ps: np.ndarray                              # (G, K) float64
@@ -328,17 +373,330 @@ class Checkpoint:
                 for g in range(self.n_generators)]
 
 
+# ---------------------------------------------------------------------------
+# campaign spec + ledger (generator-fleet screening, DESIGN.md §8)
+
+
+@dataclasses.dataclass(frozen=True)
+class CampaignSpec:
+    """Declarative screening grid: ``generators`` x ``n_streams``
+    sub-streams, screened in ``waves`` (battery scales, run cheapest
+    first) with failed cells knocked out of later waves.
+
+    ``stream_check`` prepends the ``pairstream`` seam battery as phase 0
+    (grids of more than one stream). ``span`` is the word spacing of
+    adjacent sub-streams (``None``: ``campaign.default_span``, the
+    smallest power of two that keeps every job's block of the largest
+    wave in its own stream). More than one stream needs counter-based
+    sources: ``mwc`` is refused here, not at dispatch. ``sources`` spells
+    the fleet as ``RunSpec.sources`` does, captured files included.
+
+    ``verdict_engine`` is ``bonferroni`` or ``evalue``; under ``evalue``
+    each cell's e-value wealth accumulates across waves in the ledger and
+    a cell FAILs once it reaches ``1/alpha``. A cell still UNDECIDED
+    after the last wave with wealth in ``[continue_band/alpha,
+    1/alpha)`` is re-opened on fresh stream words, up to
+    ``max_continuations`` times (0 disables; band 0 decides it at
+    once). Both knobs are inert under ``bonferroni``."""
+    battery: str
+    generators: Tuple[str, ...] = ()
+    n_streams: int = 1
+    seed: int = 0
+    waves: Tuple[float, ...] = (0.25, 1.0)
+    alpha: float = 0.01
+    policy: Union[str, SchedulePolicy] = "lpt"
+    retry: RetryPolicy = RetryPolicy()
+    backend: str = "auto"
+    stream_check: bool = True
+    span: Optional[int] = None
+    ledger_path: Optional[str] = None
+    progress: Union[bool, Callable] = False
+    sources: Optional[Tuple] = None
+    verdict_engine: str = "bonferroni"
+    continue_band: float = 0.5
+    max_continuations: int = 1
+
+    def __post_init__(self):
+        if self.battery not in BATTERY_SIZES:
+            raise KeyError(f"unknown battery {self.battery!r}; "
+                           f"known: {sorted(BATTERY_SIZES)}")
+        if self.sources is not None:
+            given = (self.sources if isinstance(self.sources, (tuple, list))
+                     else (self.sources,))
+            srcs = tuple(resolve_source(s) for s in given)
+            gens = tuple(s.name for s in srcs)
+        else:
+            gens = ((self.generators,) if isinstance(self.generators, str)
+                    else tuple(self.generators))
+            srcs = tuple(resolve_source(g) for g in gens)
+        if not gens:
+            raise ValueError("a campaign needs at least one generator "
+                             "(or source)")
+        if len(set(gens)) != len(gens):
+            raise ValueError(f"duplicate generators in {gens}")
+        object.__setattr__(self, "generators", gens)
+        object.__setattr__(self, "sources", srcs)
+        if self.n_streams < 1:
+            raise ValueError(f"n_streams must be >= 1, got {self.n_streams}")
+        if self.n_streams > 1:
+            bad = [s.name for s in srcs if not s.counter_based]
+            if bad:
+                raise ValueError(
+                    f"stream grids need offset-continuable generators; "
+                    f"{bad} are not COUNTER_BASED")
+        waves = ((self.waves,) if isinstance(self.waves, (int, float))
+                 else tuple(float(w) for w in self.waves))
+        if not waves or any(w <= 0 for w in waves):
+            raise ValueError(f"waves must be positive scales, got {waves}")
+        object.__setattr__(self, "waves", waves)
+        if not (0.0 < self.alpha < 1.0):
+            raise ValueError(f"alpha must be in (0, 1), got {self.alpha}")
+        get_policy(self.policy)
+        if self.backend not in kernel_backends.BACKENDS:
+            raise KeyError(f"unknown backend {self.backend!r}; "
+                           f"known: {kernel_backends.BACKENDS}")
+        if self.span is not None and self.span < 1:
+            raise ValueError(f"span must be >= 1, got {self.span}")
+        stitch.verdict_for(self.verdict_engine)  # validate early
+        if not (0.0 <= self.continue_band < 1.0):
+            raise ValueError(f"continue_band must be in [0, 1), "
+                             f"got {self.continue_band}")
+        if self.max_continuations < 0:
+            raise ValueError(f"max_continuations must be >= 0, "
+                             f"got {self.max_continuations}")
+        if (self.verdict_engine != "bonferroni" and self.max_continuations
+                and self.continue_band > 0.0):
+            # a continuation phase reads words past every stream's
+            # scheduled block, which needs jump-ahead
+            bad = [s.name for s in srcs if not s.counter_based]
+            if bad:
+                raise ValueError(
+                    f"optional continuation needs offset-continuable "
+                    f"generators; {bad} are not COUNTER_BASED (set "
+                    f"max_continuations=0 or continue_band=0.0)")
+
+    @property
+    def cells(self) -> List[Tuple[str, int]]:
+        """Grid cells in ledger order: (generator, stream) pairs."""
+        return [(g, s) for g in self.generators
+                for s in range(self.n_streams)]
+
+    @property
+    def cell_sources(self) -> List[Tuple[BitSource, int]]:
+        """Grid cells in ledger order as (source, stream) pairs."""
+        return [(src, s) for src in self.sources
+                for s in range(self.n_streams)]
+
+    @property
+    def n_cells(self) -> int:
+        """Grid size: generators x streams."""
+        return len(self.generators) * self.n_streams
+
+    def digest(self) -> int:
+        """uint64 identity of everything the campaign's decisions depend
+        on: battery, grid, seed, waves, alpha, policy, stream_check,
+        span, each captured source's uid (its file's content), and the
+        verdict engine with its continuation knobs when it is not the
+        default. It is the sha256 of ``repr`` of the same tuple the
+        reference hashes, so either package's ledger matches the other's
+        spec. ``backend`` is left out: both backends give the same
+        verdicts."""
+        import hashlib
+        policy = get_policy(self.policy)
+        parts = (self.battery, self.generators, self.n_streams,
+                 self.seed, self.waves, self.alpha, policy.name,
+                 policy.signature(), self.stream_check, self.span)
+        captured = tuple(s.uid() for s in self.sources if s.captured)
+        if captured:
+            parts = parts + (captured,)
+        if self.verdict_engine != "bonferroni":
+            parts = parts + (("engine", self.verdict_engine,
+                              self.continue_band, self.max_continuations),)
+        key = repr(parts)
+        return int.from_bytes(
+            hashlib.sha256(key.encode()).digest()[:8], "big")
+
+
+CAMPAIGN_LEDGER_VERSION = 3
+
+# cell decision codes of the ledger and the campaign driver (0/1/2 match
+# BatteryRun._DECISION_CODE)
+CELL_UNDECIDED, CELL_PASS, CELL_FAIL = 0, 1, 2
+
+
+@dataclasses.dataclass
+class CampaignLedger:
+    """On-disk campaign progress, keyed by cell identity ``(gen_id,
+    stream)``, never by wave order. The file is the reference's, leaf for
+    leaf and byte for byte, so either package resumes the other's.
+
+    Wire layouts (``ckpt/io`` leaves)::
+
+      v3 (written): [version, gen_ids (C,) int32, streams (C,) int32,
+                     decisions (C,) int8, decided_phase (C,) int8
+                     (-1 = undecided), phases_done, alpha,
+                     spec_digest uint64, source_uids (C,) bytes,
+                     log_wealth (C,) float64 — empty when absent,
+                     engine (1,) bytes, continuations int64]
+      v2 (read):    v3 without the trailing log_wealth + engine +
+                    continuations leaves
+      v1 (read):    v2 without the trailing source_uids leaf
+
+    ``source_uids`` pins each cell's source (a captured cell has gen_id
+    -1 and a uid that carries its file's digest). ``decided_phase`` is
+    the phase that decided a cell (0 is the stream check when there is
+    one, then the waves in ascending scale, then continuations).
+    ``phases_done`` counts completed phases; a phase cut mid-battery
+    resumes from its own run checkpoint ``<ledger>.phaseK``.
+    ``log_wealth`` is each cell's e-value wealth across phases (evalue),
+    ``engine`` the verdict engine (v1/v2 imply ``bonferroni``),
+    ``continuations`` the continuation phases opened, and
+    ``spec_digest`` ``CampaignSpec.digest()``: resuming another
+    configuration is refused."""
+    gen_ids: np.ndarray
+    streams: np.ndarray
+    decisions: np.ndarray
+    decided_phase: np.ndarray
+    phases_done: int = 0
+    alpha: Optional[float] = None
+    spec_digest: int = 0
+    source_uids: Optional[np.ndarray] = None    # (C,) bytes BitSource.uid
+    log_wealth: Optional[np.ndarray] = None     # (C,) float64 e-wealth
+    engine: str = "bonferroni"                  # decisions' verdict engine
+    continuations: int = 0                      # continuation phases opened
+    version: int = CAMPAIGN_LEDGER_VERSION
+
+    @staticmethod
+    def _want_ids(spec: CampaignSpec):
+        """The spec's grid as ledger columns: per-cell gen_id (-1 for a
+        captured cell) and stream index."""
+        gids = [(-1 if src.captured else src.gen_id)
+                for src, _ in spec.cell_sources]
+        return (np.asarray(gids, np.int32),
+                np.asarray([s for _, s in spec.cell_sources], np.int32))
+
+    @classmethod
+    def fresh(cls, spec: CampaignSpec) -> "CampaignLedger":
+        """An all-undecided ledger for the spec's grid."""
+        c = spec.n_cells
+        gids, streams = cls._want_ids(spec)
+        uids = np.asarray([src.uid().encode()
+                           for src, _ in spec.cell_sources])
+        return cls(gids, streams,
+                   np.zeros((c,), np.int8), np.full((c,), -1, np.int8),
+                   0, spec.alpha, spec.digest(), uids,
+                   log_wealth=np.zeros((c,), np.float64),
+                   engine=spec.verdict_engine)
+
+    @classmethod
+    def load(cls, path: str) -> "CampaignLedger":
+        """Read (and version-check) a v1, v2 or v3 ledger file."""
+        leaves = ckpt_io.load_flat(path)
+        if len(leaves) == 12:                   # v3: verdict engine
+            (ver, gids, streams, dec, phase, done, alpha, digest, uids,
+             lw, eng, cont) = leaves
+            if int(ver) != CAMPAIGN_LEDGER_VERSION:
+                raise ValueError(
+                    f"campaign ledger {path} declares version {int(ver)} "
+                    f"in a 12-leaf layout; this build reads "
+                    f"v1/v2/v{CAMPAIGN_LEDGER_VERSION}")
+            uids = np.asarray(uids)
+            alpha = float(alpha)
+            lw = np.asarray(lw, np.float64)
+            eng = np.asarray(eng)
+            return cls(np.asarray(gids, np.int32),
+                       np.asarray(streams, np.int32),
+                       np.asarray(dec, np.int8), np.asarray(phase, np.int8),
+                       int(done), None if np.isnan(alpha) else alpha,
+                       int(np.uint64(digest)),
+                       uids if uids.size else None,
+                       log_wealth=lw if lw.size else None,
+                       engine=(bytes(eng.reshape(-1)[0]).decode()
+                               if eng.size else "bonferroni"),
+                       continuations=int(cont),
+                       version=CAMPAIGN_LEDGER_VERSION)
+        if len(leaves) == 9:                    # v2: source identity
+            ver, gids, streams, dec, phase, done, alpha, digest, uids = leaves
+            if int(ver) != 2:
+                raise ValueError(
+                    f"campaign ledger {path} declares version {int(ver)} "
+                    f"in a 9-leaf (v2) layout; this build reads "
+                    f"v1/v2/v{CAMPAIGN_LEDGER_VERSION}")
+            uids = np.asarray(uids)
+            alpha = float(alpha)
+            return cls(np.asarray(gids, np.int32),
+                       np.asarray(streams, np.int32),
+                       np.asarray(dec, np.int8), np.asarray(phase, np.int8),
+                       int(done), None if np.isnan(alpha) else alpha,
+                       int(np.uint64(digest)),
+                       uids if uids.size else None, version=2)
+        if len(leaves) == 8:                    # v1: no source identity
+            ver, gids, streams, dec, phase, done, alpha, digest = leaves
+            if int(ver) != 1:
+                raise ValueError(
+                    f"campaign ledger {path} declares version {int(ver)} "
+                    f"in an 8-leaf (v1) layout; this build reads "
+                    f"v1/v2/v{CAMPAIGN_LEDGER_VERSION}")
+            alpha = float(alpha)
+            return cls(np.asarray(gids, np.int32),
+                       np.asarray(streams, np.int32),
+                       np.asarray(dec, np.int8), np.asarray(phase, np.int8),
+                       int(done), None if np.isnan(alpha) else alpha,
+                       int(np.uint64(digest)), None, version=1)
+        raise ValueError(f"campaign ledger {path} has {len(leaves)} "
+                         "leaves; expected 8 (v1), 9 (v2) or 12 (v3)")
+
+    def save(self, path: str) -> None:
+        """Write the 12-leaf v3 layout (atomic)."""
+        uids = (np.zeros((0,), "S1") if self.source_uids is None
+                else np.asarray(self.source_uids))
+        lw = (np.zeros((0,), np.float64) if self.log_wealth is None
+              else np.asarray(self.log_wealth, np.float64))
+        ckpt_io.save(path, [
+            np.int64(CAMPAIGN_LEDGER_VERSION),
+            np.asarray(self.gen_ids, np.int32),
+            np.asarray(self.streams, np.int32),
+            np.asarray(self.decisions, np.int8),
+            np.asarray(self.decided_phase, np.int8),
+            np.int64(self.phases_done),
+            np.float64(np.nan if self.alpha is None else self.alpha),
+            np.uint64(self.spec_digest), uids, lw,
+            np.asarray([self.engine.encode()]),
+            np.int64(self.continuations)])
+
+    def matches(self, spec: CampaignSpec) -> bool:
+        """Does this ledger describe exactly this campaign: the same cells
+        in the same order, the same sources and the same
+        decision-relevant configuration (``CampaignSpec.digest``)? A v1
+        ledger (no uids) matches on the other columns alone."""
+        want_g, want_s = self._want_ids(spec)
+        if self.source_uids is not None:
+            want_u = np.asarray([src.uid().encode()
+                                 for src, _ in spec.cell_sources])
+            uids = np.asarray(self.source_uids)
+            if uids.shape != want_u.shape or not bool(np.all(uids == want_u)):
+                return False
+        return (self.gen_ids.shape == want_g.shape
+                and bool(np.all(self.gen_ids == want_g))
+                and bool(np.all(self.streams == want_s))
+                and (self.alpha is None or self.alpha == spec.alpha)
+                and self.engine == spec.verdict_engine
+                and self.spec_digest == spec.digest())
+
+
 @dataclasses.dataclass
 class _Compiled:
     """One job-table slot: the battery and job tables plus the round
-    runners built for it, keyed ``(n_workers, G)``. The reference also
-    keys the switch width it traced; here the generator registry is read
-    at each call, so a runner serves every registered generator."""
+    runners built for it, keyed as the reference keys them:
+    ``(n_workers, G, grid, captured, lanes)``. ``lanes`` is the registry
+    width the reference traced its switch at; here the registry is read
+    at each call, so a runner of any width serves every generator, and
+    the key only keeps the reference's accounting."""
     entries: List[TestEntry]        # original battery (test space)
     jobs: List[TestEntry]           # possibly decomposed (job space)
     costs: List[float]
     combine: str
-    runners: dict
+    runners: dict       # (n_workers, G, grid, captured, lanes) -> runner
 
 
 class PoolSession:
@@ -399,19 +757,42 @@ class PoolSession:
             self._cache[key] = hit
         return hit
 
-    def _runner(self, spec: RunSpec, n_gens: Optional[int] = None):
-        """The round runner for this spec's shape: pool width x G
-        generators, reused by any later spec of the same shape."""
+    def _runner(self, spec: RunSpec, n_gens: Optional[int] = None,
+                captured: bool = False):
+        """The round runner for this spec's shape, reused by any later
+        spec of the same shape: pool width x G lanes, on the grid runner
+        when the spec carries ``offsets``, on the external runner for
+        captured positions (``captured=True``). A runner built for a
+        registry at least ``spec.switch_lanes`` wide serves the spec, as
+        in the reference."""
         key = self.cache_key(spec)
         compiled = self._compiled(spec)
         g = spec.n_generators if n_gens is None else n_gens
-        runner = compiled.runners.get((self.n_workers, g))
+        grid = spec.offsets is not None and not captured
+        need = 0 if captured else spec.switch_lanes
+        runner = compiled.runners.get((self.n_workers, g, grid, captured,
+                                       need))
+        if runner is None:
+            for (w, gg, gr, cap, lanes), r in compiled.runners.items():
+                if ((w, gg, gr, cap) == (self.n_workers, g, grid, captured)
+                        and lanes >= need):
+                    runner = r
+                    break
         if runner is None:
             def on_trace():
                 self.trace_counts[key] = self.trace_counts.get(key, 0) + 1
-            make = make_round_runner if g == 1 else make_fanout_runner
-            runner = make(compiled.jobs, self.mesh, on_trace=on_trace)
-            compiled.runners[(self.n_workers, g)] = runner
+            if captured:
+                runner = make_external_runner(compiled.jobs, self.mesh,
+                                              on_trace=on_trace)
+                lanes = 0
+            else:
+                make = (make_grid_runner if grid
+                        else make_round_runner if g == 1
+                        else make_fanout_runner)
+                runner = make(compiled.jobs, self.mesh, on_trace=on_trace)
+                lanes = registry_size()
+            compiled.runners[(self.n_workers, g, grid, captured, lanes)] \
+                = runner
         return runner
 
     def entries(self, spec: RunSpec) -> List[TestEntry]:
@@ -436,6 +817,11 @@ class BatteryRun:
         self.driver_retries = 0
         self.plan_rounds = 0
         self.words_generated = 0
+        # captured positions: host read time, bytes copied to the device
+        # and rounds that read a capture
+        self.prefetch_s = 0.0
+        self.bytes_to_device = 0
+        self.captured_rounds = 0
         self.cancelled = False
         G = spec.n_generators
         self._results: List[Dict[int, tuple]] = [dict() for _ in range(G)]
@@ -541,6 +927,13 @@ class BatteryRun:
         return [stitch.fold_groups(self._results[g], self._compiled.jobs,
                                    self._compiled.combine)
                 for g in range(self.spec.n_generators)]
+
+    def verdicts_by_position(self) -> List[stitch.Verdict]:
+        """Interim verdicts by generator position (``verdict()`` keys by
+        name, which merges positions that repeat a name, as a campaign
+        grid's do)."""
+        self._update_verdicts()
+        return list(self._verdicts)
 
     def cancel(self) -> int:
         """condor_rm: drop every pending round; returns how many. The
@@ -695,23 +1088,51 @@ class BatteryRun:
         return n - len(undone)
 
     def _dispatch(self, row: np.ndarray) -> None:
-        """One round for the active generators: one runner call, the
-        undecided generators on its fan-out axis."""
+        """One round for the active positions: one runner call for the
+        generator positions (the grid runner when the spec has offsets)
+        and one for the captured positions, whose words are read on the
+        host (``gather_captured_bits``) and copied to the device in one
+        piece."""
         active = self._active()
         if not active:
             return
-        runner = self.session._runner(self.spec, n_gens=len(active))
-        gids = [self.spec.sources[g].gen_id for g in active]
-        seeds = [self.spec.seeds[g] for g in active]
-        if len(active) == 1:
-            stats, ps = runner(row, seeds[0], gids[0])
-            per_gen = [(active[0], stats, ps)]
-        else:
-            stats, ps = runner(row, seeds, gids)
-            per_gen = [(g, stats[a], ps[a]) for a, g in enumerate(active)]
-        jobs = self._compiled.jobs
-        self.words_generated += len(active) * sum(
-            word_bucket(jobs[int(j)].n_words) for j in row if j >= 0)
+        srcs, spec = self.spec.sources, self.spec
+        switched = [g for g in active if not srcs[g].captured]
+        captured = [g for g in active if srcs[g].captured]
+        per_gen = []
+        if switched:
+            runner = self.session._runner(spec, n_gens=len(switched))
+            gids = [srcs[g].gen_id for g in switched]
+            seeds = [spec.seeds[g] for g in switched]
+            if spec.offsets is not None:
+                stats, ps = runner(row, seeds, gids,
+                                   [spec.offsets[g] for g in switched])
+                per_gen += [(g, stats[a], ps[a])
+                            for a, g in enumerate(switched)]
+            elif len(switched) == 1:
+                stats, ps = runner(row, seeds[0], gids[0])
+                per_gen.append((switched[0], stats, ps))
+            else:
+                stats, ps = runner(row, seeds, gids)
+                per_gen += [(g, stats[a], ps[a])
+                            for a, g in enumerate(switched)]
+            jobs = self._compiled.jobs
+            self.words_generated += len(switched) * sum(
+                word_bucket(jobs[int(j)].n_words) for j in row if j >= 0)
+        if captured:
+            runner = self.session._runner(spec, n_gens=len(captured),
+                                          captured=True)
+            lanes = [(srcs[g], spec.seeds[g],
+                      None if spec.offsets is None else spec.offsets[g])
+                     for g in captured]
+            bits = gather_captured_bits(
+                self._compiled.jobs, row, lanes,
+                pin=self.session.device.type == "cuda")
+            self.prefetch_s += bits.seconds
+            self.bytes_to_device += bits.nbytes
+            self.captured_rounds += 1
+            stats, ps = runner(row, bits)
+            per_gen += [(g, stats[a], ps[a]) for a, g in enumerate(captured)]
         for g, st, pv in per_gen:
             self._results[g] = stitch.fold(row[None, :], st[None, :],
                                            pv[None, :], self._results[g])
@@ -786,8 +1207,10 @@ class BatteryRun:
             if saved != want:
                 raise ValueError(
                     f"checkpoint {path} was written against sources "
-                    f"{saved}, spec names {want} — a run of other "
-                    f"sources must re-run, never resume")
+                    f"{saved}, spec names {want} — for a captured source "
+                    f"the uid embeds the file's content digest, so a "
+                    f"re-captured (byte-different) file must re-run, "
+                    f"never resume")
         if (len(ck.job_idx)
                 and int(np.max(ck.job_idx)) >= len(self._compiled.jobs)):
             raise ValueError(

@@ -176,6 +176,11 @@ def build_battery(name: str, scale: float = 1.0,
             for i, (k, kw) in enumerate(combos)]
 
 
+def max_words(entries: List[TestEntry]) -> int:
+    """Widest block any entry consumes; 0 for an empty table."""
+    return max((e.n_words for e in entries), default=0)
+
+
 def split_entry(entry: TestEntry, n_parts: int,
                 start_index: int = 0) -> List[TestEntry]:
     """Over-decomposition: split one test into ``n_parts`` sub-jobs, each

@@ -1,5 +1,6 @@
 """Pool scheduler: the classic ``make_plan``/``replan`` surface over the
-policy registry (``repro/core/scheduler.py``)."""
+policy registry, and a campaign's wave order and makespan model
+(``repro/core/scheduler.py``)."""
 from __future__ import annotations
 
 from typing import Sequence, Union
@@ -19,6 +20,27 @@ def make_plan(costs: Sequence[float], n_workers: int,
     if entries is not None and plan_entries is not None:
         return plan_entries(entries, n_workers)
     return policy.plan(costs, n_workers)
+
+
+def wave_schedule(scales: Sequence[float]) -> list:
+    """Campaign wave order (DESIGN.md §8): the battery scales sorted
+    ascending, duplicates kept, so every cell a cheap wave knocks out
+    never pays for the expensive ones."""
+    out = sorted(float(s) for s in scales)
+    if not out:
+        raise ValueError("a campaign needs at least one wave scale")
+    if any(s <= 0 for s in out):
+        raise ValueError(f"wave scales must be positive, got {out}")
+    return out
+
+
+def wave_makespan(costs: Sequence[float], n_workers: int, n_cells: int,
+                  mode: Union[str, SchedulePolicy] = "lpt") -> tuple:
+    """``(batched, per_cell)`` estimated makespans of one wave over
+    ``n_cells`` grid cells: one plan whose rounds carry every cell, and
+    the same plan run once per cell."""
+    plan = make_plan(costs, n_workers, mode)
+    return plan.est_makespan, plan.est_makespan * max(int(n_cells), 1)
 
 
 def replan(missing: Sequence[int], costs: Sequence[float],

@@ -1,6 +1,7 @@
 """superstitch: fold per-(round, worker) results into the battery
-report, the Bonferroni-sequential verdict engine and the registry of
-verdict engines (``repro/core/stitch.py``, classic path).
+report, the Bonferroni-sequential verdict engine, the registry of
+verdict engines, and a campaign's decision matrix and report
+(``repro/core/stitch.py``).
 
 Over-decomposed tests are folded back per group (Stouffer or Fisher);
 suspicious p-values are flagged with TestU01's two-sided convention.
@@ -97,6 +98,14 @@ def fold_groups(job_results: Dict[int, tuple], jobs,
     return out
 
 
+def demux_positions(per_position, groups: Dict) -> Dict:
+    """Split a merged multi-generator dispatch by member: ``groups`` maps
+    each member to the positions its own spec contributed, and the
+    result maps it to ``[per_position[p] for p in its positions]``."""
+    return {member: [per_position[int(p)] for p in positions]
+            for member, positions in groups.items()}
+
+
 # ---------------------------------------------------------------------------
 # sequential verdict engine (adaptive early stopping, DESIGN.md §4)
 
@@ -189,6 +198,60 @@ def verdict_for(engine: str):
     except KeyError:
         raise KeyError(f"unknown verdict engine {engine!r}; known: "
                        f"{sorted(VERDICT_ENGINES)}") from None
+
+
+# ---------------------------------------------------------------------------
+# campaign matrix + summary report (DESIGN.md §8)
+
+_CELL_GLYPH = {0: "?", 1: "P", 2: "F"}     # api.CELL_UNDECIDED/PASS/FAIL
+
+
+def campaign_matrix(decisions, n_generators: int,
+                    n_streams: int) -> np.ndarray:
+    """The cell-ordered decision vector as the (generators, streams)
+    matrix (cell order is generator-major, as ``CampaignSpec.cells``)."""
+    d = np.asarray(decisions, np.int8)
+    if d.size != n_generators * n_streams:
+        raise ValueError(f"{d.size} cell decisions for a "
+                         f"{n_generators} x {n_streams} grid")
+    return d.reshape(n_generators, n_streams)
+
+
+def campaign_report(generators, n_streams: int, decisions,
+                    decided_phase, phase_names) -> str:
+    """The campaign's superstitch: the PASS/FAIL/UNDECIDED matrix (rows
+    generators, columns sub-streams; a decided cell shows its glyph and
+    the phase that decided it) and the knockouts per phase."""
+    generators = list(generators)
+    mat = campaign_matrix(decisions, len(generators), n_streams)
+    phase = np.asarray(decided_phase, np.int8).reshape(len(generators),
+                                                      n_streams)
+    lines = [
+        "========= campaign screening matrix =========",
+        f"grid: {len(generators)} generator(s) x {n_streams} stream(s)   "
+        f"phases: {', '.join(phase_names)}",
+        "-" * 46,
+        "generator      | " + " ".join(f"s{s:<3d}" for s in range(n_streams)),
+    ]
+    for g, gen in enumerate(generators):
+        cells = []
+        for s in range(n_streams):
+            glyph = _CELL_GLYPH[int(mat[g, s])]
+            tag = f"{glyph}@{int(phase[g, s])}" if mat[g, s] else f"{glyph}  "
+            cells.append(f"{tag:4s}")
+        lines.append(f"{gen:14s} | " + " ".join(cells))
+    lines.append("-" * 46)
+    n_pass = int(np.sum(mat == 1))
+    n_fail = int(np.sum(mat == 2))
+    n_open = int(np.sum(mat == 0))
+    lines.append(f"cells: {mat.size}  pass: {n_pass}  fail: {n_fail}  "
+                 f"undecided: {n_open}")
+    for p, name in enumerate(phase_names):
+        knocked = int(np.sum((phase == p) & (mat == 2)))
+        if knocked:
+            lines.append(f"  phase {p} ({name}): knocked out {knocked} "
+                         f"cell(s)")
+    return "\n".join(lines)
 
 
 def report(entries, results: Dict[int, tuple], gen_name: str,

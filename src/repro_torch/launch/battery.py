@@ -1,5 +1,4 @@
-"""One-command battery CLI on the port (``repro/launch/battery.py``,
-classic path)::
+"""One-command battery CLI on the port (``repro/launch/battery.py``)::
 
   PYTHONPATH=src python -m repro_torch.launch.battery \\
       --battery bigcrush --gen splitmix64,randu --backend accelerated \\
@@ -16,28 +15,53 @@ the file is complete), and either package resumes the other's file.
 (``core/evidence.py``) and adds the ``evidence`` section to ``--json``.
 ``--json PATH`` writes the reference's machine-readable report keys.
 
-Exit code: 1 when any p-value is suspect (or, under ``--adaptive`` or
-the ``evalue`` engine, any generator FAILs), else 0.
+``--source file:PATH[:fmt]`` (repeatable) screens a captured bitstream,
+``fmt`` ``npy`` (uint32; 2-D is one stream per row) or ``u32`` (raw
+little-endian words): the file rides beside the ``--gen`` positions, its
+words read on the host and copied to the card once per round, and its
+results are bitwise those of the generator whose words it holds. The
+``--json`` report gains the ``sources`` key. ``--register PKG.MOD:FN``
+imports the module and calls ``FN()`` before the run, so the generators
+it registers with ``repro_torch.rng.sources.register_generator`` (torch
+block functions) are valid ``--gen`` names.
 
-Flags of the reference that select parts not ported yet (campaigns,
-captured sources, elastic resize, fault injection, serving) are refused
-with an error, never ignored.
+``--campaign`` screens a generator fleet (DESIGN.md §8): the ``--gen``
+list (and ``--source`` files) x ``--streams`` sub-streams, in
+``--waves`` battery scales, cheapest first, a failed cell knocked out of
+later waves, the ``pairstream`` seam check first unless
+``--no-stream-check``::
+
+  PYTHONPATH=src python -m repro_torch.launch.battery --campaign \\
+      --battery smallcrush --gen splitmix64,pcg32,randu --streams 4 \\
+      --waves 0.125,0.5 --ledger campaign.ck --json report.json
+
+It prints the per-cell PASS/FAIL matrix; ``--ledger`` makes it
+resumable (the reference's ledger v3, which either package resumes; a
+finished campaign run again prints ``rounds=0``). The ``--json`` report
+has the reference's ``campaign`` key (and ``evidence`` under
+``--verdict-engine evalue``).
+
+Exit code: a classic run exits 1 when any p-value is suspect (or, under
+``--adaptive`` or the ``evalue`` engine, any generator FAILs), else 0; a
+campaign exits 0 when no cell is left undecided, else 1; 2 is a usage
+error, or a run whose held jobs outlived the retry budget.
+
+Flags of the reference whose parts are not ported yet (elastic resize,
+fault injection, serving) are refused with an error, never ignored.
 """
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import os
 import sys
 from typing import Optional, Sequence
 
 # reference flags whose subsystems are not ported yet: (flag, takes value)
-_NOT_PORTED = (("--source", True), ("--register", True), ("--inject", True),
-               ("--resize-at", True), ("--campaign", False),
-               ("--streams", True), ("--waves", True), ("--ledger", True),
-               ("--no-stream-check", False), ("--serve", False),
-               ("--serve-state", True), ("--serve-resubmit", False),
-               ("--serve-max-wait", True))
+_NOT_PORTED = (("--inject", True), ("--resize-at", True),
+               ("--serve", False), ("--serve-state", True),
+               ("--serve-resubmit", False), ("--serve-max-wait", True))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -45,8 +69,19 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.battery")
     ap.add_argument("--battery", default="smallcrush",
                     choices=["smallcrush", "crush", "bigcrush"])
-    ap.add_argument("--gen", default="splitmix64",
-                    help="generator name, or a comma-separated list")
+    ap.add_argument("--gen", default=None,
+                    help="generator name, or a comma-separated list "
+                         "(default splitmix64 when no --source is given)")
+    ap.add_argument("--source", action="append", default=None,
+                    metavar="file:PATH[:FMT]",
+                    help="screen a captured bitstream: file:PATH[:fmt], "
+                         "fmt 'npy' (uint32, 2-D = one stream per row) or "
+                         "'u32' (raw little-endian words); repeatable")
+    ap.add_argument("--register", action="append", default=None,
+                    metavar="PKG.MOD:FN",
+                    help="import PKG.MOD and call FN() before the run, to "
+                         "register generators (torch block functions) via "
+                         "repro_torch.rng.sources.register_generator")
     ap.add_argument("--seed", type=int, default=42)
     ap.add_argument("--scale", type=float, default=0.25)
     ap.add_argument("--workers", type=int, default=0,
@@ -71,6 +106,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--ckpt", default=None,
                     help="checkpoint path: saved after every round, "
                          "resumed from when it exists")
+    ap.add_argument("--campaign", action="store_true",
+                    help="generator-fleet screening: the --gen list x "
+                         "--streams sub-streams in --waves scales with "
+                         "knockout (core/campaign.py)")
+    ap.add_argument("--streams", type=int, default=1,
+                    help="sub-streams per generator in a campaign grid "
+                         "(needs counter-based generators)")
+    ap.add_argument("--waves", default=None,
+                    help="comma-separated wave scales for --campaign "
+                         "(default: one wave at --scale)")
+    ap.add_argument("--ledger", default=None,
+                    help="campaign ledger path (resumable screening)")
+    ap.add_argument("--no-stream-check", dest="stream_check",
+                    action="store_false",
+                    help="skip the pairstream seam phase of a campaign")
     ap.add_argument("--device", default="cuda",
                     help="torch device the pool runs on (default cuda)")
     ap.add_argument("--json", dest="json_path", default=None,
@@ -83,6 +133,85 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def _write_json(path: str, payload: dict) -> None:
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(payload, f, indent=2)
+    print(f"json report -> {path}")
+
+
+def _campaign(args, ap, session, positions, gens, source_specs) -> int:
+    """The ``--campaign`` path; returns the exit code."""
+    from repro_torch.core.api import CampaignSpec
+    from repro_torch.core.campaign import Campaign
+    from repro_torch.core.policies import RetryPolicy
+    from repro_torch.stats import backends as kernel_backends
+    if args.adaptive or args.ckpt:
+        ap.error("--campaign cannot combine with --adaptive/--ckpt (its "
+                 "own ledger handles resume)")
+    waves = (tuple(float(w) for w in args.waves.split(","))
+             if args.waves else (args.scale,))
+    cspec = CampaignSpec(
+        args.battery, sources=positions, n_streams=args.streams,
+        seed=args.seed, waves=waves, alpha=args.alpha, policy=args.policy,
+        retry=RetryPolicy(max_retries=args.retries), backend=args.backend,
+        stream_check=args.stream_check, ledger_path=args.ledger,
+        progress=True, verdict_engine=args.verdict_engine)
+    campaign = Campaign(session, cspec)
+    print(f"campaign: {len(cspec.generators)} source(s) x {args.streams} "
+          f"stream(s) | battery={args.battery} waves={waves} "
+          f"span={campaign.span} policy={args.policy} "
+          f"backend={args.backend} on {session.device}")
+    res = campaign.run()
+    print(res.report)
+    print(f"\nwall={res.wall_s:.1f}s rounds={res.rounds_run} "
+          f"traces={session.total_traces}")
+    n_open = len(res.cells) - len(res.survivors) - len(res.knockouts)
+    if args.json_path:
+        payload = {
+            "battery": args.battery, "workers": session.n_workers,
+            "policy": args.policy, "backend": args.backend,
+            "backend_resolved": kernel_backends.resolve(args.backend,
+                                                        session.device),
+            "alpha": args.alpha, "seed": args.seed,
+            "wall_s": round(res.wall_s, 3), "rounds_run": res.rounds_run,
+            "campaign": {
+                "n_streams": args.streams, "waves": list(waves),
+                **({"sources": [
+                    {"spec": raw, "uid": src.uid()}
+                    for raw, src in zip(source_specs,
+                                        cspec.sources[len(gens):])]}
+                   if args.source else {}),
+                "span": campaign.span,
+                "phases": res.phase_names,
+                "stream_check": args.stream_check,
+                "survivors": len(res.survivors),
+                "knockouts": len(res.knockouts),
+                "undecided": n_open,
+                "cells": [
+                    {"gen": g, "stream": s,
+                     "decision": res.decision(g, s),
+                     "phase": (int(res.decided_phase[i])
+                               if res.decided_phase[i] >= 0 else None)}
+                    for i, (g, s) in enumerate(res.cells)],
+            },
+        }
+        if args.verdict_engine != "bonferroni":
+            payload["evidence"] = {
+                "engine": args.verdict_engine,
+                "threshold": 1.0 / args.alpha,
+                "continuations": res.continuations,
+                "cells": [
+                    {"gen": g, "stream": s,
+                     "wealth": float(res.wealth[i]),
+                     "log_wealth": float(res.log_wealth[i])}
+                    for i, (g, s) in enumerate(res.cells)]}
+        _write_json(args.json_path, payload)
+    # knockouts are the product, not an error; an undecided cell means
+    # the screening did not finish
+    return 0 if n_open == 0 else 1
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     """Run the CLI; returns the exit code."""
     ap = build_parser()
@@ -91,6 +220,14 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         if getattr(args, "unported_" + flag[2:].replace("-", "_")):
             ap.error(f"{flag} is not ported to repro_torch yet; run it "
                      f"with python -m repro.launch.battery")
+    if not args.campaign:
+        for value, default, name in ((args.waves, None, "--waves"),
+                                     (args.streams, 1, "--streams"),
+                                     (args.ledger, None, "--ledger"),
+                                     (args.stream_check, True,
+                                      "--no-stream-check")):
+            if value != default:
+                ap.error(f"{name} only applies with --campaign")
     if args.adaptive:
         if args.policy not in ("lpt", "adaptive"):
             ap.error(f"--adaptive selects the adaptive schedule policy; "
@@ -102,17 +239,38 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     from repro_torch.core.policies import RetryBudgetExhausted, RetryPolicy
     from repro_torch.stats import backends as kernel_backends
 
-    gens = tuple(g.strip() for g in args.gen.split(",") if g.strip())
+    # registration hooks run before any name is resolved, so a generator
+    # a hook registers is a --gen name like a built-in
+    for hook in args.register or ():
+        mod_name, sep, fn_name = hook.partition(":")
+        if not sep or not mod_name or not fn_name:
+            ap.error(f"--register wants PKG.MOD:FN, got {hook!r}")
+        try:
+            fn = getattr(importlib.import_module(mod_name), fn_name)
+        except (ImportError, AttributeError) as exc:
+            ap.error(f"--register {hook!r}: {exc}")
+        fn()
+
+    gens = (tuple(g.strip() for g in args.gen.split(",") if g.strip())
+            if args.gen else ())
+    source_specs = tuple(args.source or ())
+    if not gens and not source_specs:
+        gens = ("splitmix64",)
+    positions = gens + source_specs
     session = PoolSession(n_workers=args.workers or None, device=args.device)
-    spec = RunSpec(args.battery, generators=gens, seeds=(args.seed,),
+    if args.campaign:
+        return _campaign(args, ap, session, positions, gens, source_specs)
+
+    spec = RunSpec(args.battery, sources=positions, seeds=(args.seed,),
                    scale=args.scale, policy=args.policy,
                    retry=RetryPolicy(max_retries=args.retries),
                    checkpoint_path=args.ckpt, progress=True,
                    alpha=args.alpha, stop_on_verdict=args.adaptive,
                    verdict_engine=args.verdict_engine, backend=args.backend)
+    names = spec.generators
     backend_resolved = kernel_backends.resolve(args.backend, session.device)
     print(f"pool: {session.n_workers} workers on {session.device} | "
-          f"battery={args.battery} gen={','.join(gens)} scale={args.scale} "
+          f"battery={args.battery} gen={','.join(names)} scale={args.scale} "
           f"policy={args.policy} backend={args.backend}"
           + (f"->{backend_resolved}" if args.backend == "auto" else "")
           + (f" adaptive(alpha={args.alpha})" if args.adaptive else ""))
@@ -123,14 +281,17 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     except RetryBudgetExhausted as exc:
         print(f"error: {exc}", file=sys.stderr)
         return 2
-    runs = res.runs if isinstance(res, BatteryResult) else {gens[0]: res}
+    runs = res.runs if isinstance(res, BatteryResult) else {names[0]: res}
     for run in runs.values():
         print(run.report)
     for gen, run in runs.items():
         print(f"verdict[{gen}]: {run.verdict}")
     plan_rounds = next(iter(runs.values())).plan_rounds
     print(f"\nwall={res.wall_s:.1f}s rounds={res.rounds_run}/{plan_rounds}"
-          f" retries={res.retries} words={handle.words_generated}")
+          f" retries={res.retries} words={handle.words_generated}"
+          + (f" captured_rounds={handle.captured_rounds} prefetch_ms="
+             f"{handle.prefetch_s * 1e3:.1f} h2d_bytes="
+             f"{handle.bytes_to_device}" if handle.captured_rounds else ""))
 
     if args.json_path:
         entries = session.entries(spec)
@@ -153,6 +314,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                                "log_wealth": run.verdict.log_wealth,
                                "trajectory": list(run.verdict.trajectory)}
                          for gen, run in runs.items()}}
+        if args.source:
+            # only with --source: the classic payload keeps its keys
+            payload["sources"] = [
+                {"spec": raw, "uid": src.uid()}
+                for raw, src in zip(source_specs, spec.sources[len(gens):])]
         for gen, run in runs.items():
             tests = []
             for e in entries:
@@ -168,10 +334,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                 "tests_checked": v.n_checked,
                 "failed_tests": list(v.failed_tests),
                 "rounds_run": run.rounds_run, "tests": tests}
-        os.makedirs(os.path.dirname(args.json_path) or ".", exist_ok=True)
-        with open(args.json_path, "w") as f:
-            json.dump(payload, f, indent=2)
-        print(f"json report -> {args.json_path}")
+        _write_json(args.json_path, payload)
 
     suspects = sum(run.n_suspect for run in runs.values())
     failed = ((args.adaptive or args.verdict_engine != "bonferroni")

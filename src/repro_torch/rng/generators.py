@@ -347,3 +347,51 @@ GENERATORS: Dict[str, Callable] = {
 for _name, _fn in GENERATORS.items():
     register_generator(_name, _fn, counter_based=_name != "mwc")
 
+
+
+# ---------------------------------------------------------------------------
+# campaign stream grids (``repro/rng/generators.py:380,401``)
+
+def stream_offsets(n_streams: int, span: int) -> np.ndarray:
+    """Word offsets of ``n_streams`` disjoint sub-streams ``span`` words
+    apart: stream s owns ``[s * span, (s + 1) * span)`` of every (seed,
+    stream-id) sequence."""
+    if n_streams < 1:
+        raise ValueError(f"n_streams must be >= 1, got {n_streams}")
+    if span < 1:
+        raise ValueError(
+            f"span must be >= 1, got {span}: a zero or negative span "
+            f"would hand every stream overlapping (or wrapped) words")
+    last = (n_streams - 1) * span            # exact Python-int arithmetic
+    if last > np.iinfo(np.int64).max:
+        raise ValueError(
+            f"stream {n_streams - 1} offset {last} overflows int64 "
+            f"words; shrink span ({span}) or n_streams ({n_streams})")
+    return np.arange(n_streams, dtype=np.int64) * np.int64(span)
+
+
+def seam_offsets(n_streams: int, span: int, n_words: int) -> np.ndarray:
+    """Block offsets straddling each adjacent-stream seam: pair s reads
+    ``[(s+1)*span - n_words, (s+1)*span + n_words)``, the last
+    ``n_words`` words of stream s and the first ``n_words`` of stream
+    s+1, which the ``pairstream`` family splits in half and compares."""
+    if n_streams < 2:
+        return np.zeros((0,), np.int64)
+    if span < 1:
+        raise ValueError(
+            f"span must be >= 1, got {span}: a zero or negative span "
+            f"would place stream 1's seam at or before word 0 and wrap")
+    if n_words < 1:
+        raise ValueError(f"n_words must be >= 1, got {n_words}")
+    if n_words > span:
+        raise ValueError(
+            f"seam block of {n_words} words needs span >= n_words, "
+            f"got span={span}")
+    hi = (n_streams - 1) * span + n_words    # exact Python-int arithmetic
+    if hi > np.iinfo(np.int64).max:
+        raise ValueError(
+            f"seam {n_streams - 2} (streams {n_streams - 2}|"
+            f"{n_streams - 1}) reads up to word {hi}, which overflows "
+            f"int64; shrink span ({span}) or n_streams ({n_streams})")
+    seams = np.arange(1, n_streams, dtype=np.int64) * np.int64(span)
+    return seams - np.int64(n_words)

@@ -336,9 +336,11 @@ def test_golden_is_the_reference_cli_output(ref):
 
 
 def test_unported_flags_are_refused():
-    for argv in (["--campaign"], ["--serve"],
-                 ["--inject", "plan.json"], ["--resize-at", "1:2"],
-                 ["--source", "file:x.npy"], ["--register", "pkg.mod:fn"]):
+    """The flags whose parts are not ported yet (serving, fault
+    injection, elastic resize) are refused, never ignored."""
+    for argv in (["--serve"], ["--serve-state", "d"], ["--serve-resubmit"],
+                 ["--serve-max-wait", "1"], ["--inject", "plan.json"],
+                 ["--resize-at", "1:2"]):
         with pytest.raises(SystemExit) as exc:
             cli.main(argv + ["--device", "cpu"])
         assert exc.value.code == 2, argv

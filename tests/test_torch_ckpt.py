@@ -423,8 +423,8 @@ def test_resume_refuses_other_sources(tmp_path):
 
 def test_runspec_sources_are_the_positions_generator_sources():
     """``sources`` and ``generators`` are two spellings of the positions;
-    each position's uid is what a checkpoint pins. Captured bitstreams
-    are not ported and are refused."""
+    each position's uid is what a checkpoint pins. A ``file:`` spec is a
+    captured bitstream, whose file must exist."""
     by_name = RunSpec("smallcrush", ("pcg32", "randu"), 3)
     by_source = RunSpec("smallcrush", sources=(GeneratorSource("pcg32"),
                                                "randu"), seeds=3)
@@ -432,8 +432,8 @@ def test_runspec_sources_are_the_positions_generator_sources():
     assert by_source.generators == ("pcg32", "randu")
     assert [s.uid() for s in by_name.sources] == ["gen:pcg32", "gen:randu"]
     assert [s.digest() for s in by_name.sources] == ["pcg32", "randu"]
-    with pytest.raises(TypeError, match="captured"):
-        RunSpec("smallcrush", sources=("file:capture.npy",))
+    with pytest.raises(FileNotFoundError):
+        RunSpec("smallcrush", sources=("file:no_such_capture.npy",))
     with pytest.raises(KeyError):
         RunSpec("smallcrush", sources=("nope",))
 

@@ -321,11 +321,7 @@ def _task_ckpt(task, save):
     session = PoolSession()
     runs = []
     for run in task.get("runs", []):
-        kw = dict(run["spec"])
-        for key in ("generators", "seeds"):
-            if isinstance(kw.get(key), list):
-                kw[key] = tuple(kw[key])
-        spec = RunSpec(checkpoint_path=run["path"], **kw)
+        spec = RunSpec(checkpoint_path=run["path"], **_tuples(run["spec"]))
         handle = session.submit(spec)
         status = handle.status()
         out = {"jobs_done_at_submit": status["jobs_done"],
@@ -354,6 +350,115 @@ def _task_ckpt(task, save):
                       for p in task.get("load", [])]}
 
 
+def _tuples(kw):
+    """Spec keywords from JSON: lists back to the tuples specs take."""
+    kw = dict(kw)
+    for key in ("generators", "seeds", "sources", "offsets", "waves"):
+        if isinstance(kw.get(key), list):
+            kw[key] = tuple(kw[key])
+    return kw
+
+
+def _task_captured(task, save):
+    """Reference captures and captured sources: ``task["captures"]``
+    lists ``capture_generator`` keyword sets (files the reference
+    writes); ``task["sources"]`` lists source specs whose name, uid,
+    digest and shape the reference reports."""
+    from repro.rng.sources import capture_generator, resolve_source
+    paths = [capture_generator(**kw) for kw in task.get("captures", [])]
+    info = []
+    for spec in task.get("sources", []):
+        src = resolve_source(spec)
+        info.append({"name": src.name, "uid": src.uid(),
+                     "digest": src.digest(), "fmt": src.fmt,
+                     "n_streams": src.n_streams, "stride": src.stride})
+    return {"paths": paths, "sources": info}
+
+
+def _ledger_fields(led):
+    return {"version": int(led.version),
+            "gen_ids": [int(x) for x in led.gen_ids],
+            "streams": [int(x) for x in led.streams],
+            "decisions": [int(x) for x in led.decisions],
+            "decided_phase": [int(x) for x in led.decided_phase],
+            "phases_done": int(led.phases_done), "alpha": led.alpha,
+            "spec_digest": str(led.spec_digest),
+            "source_uids": (None if led.source_uids is None
+                            else [u.decode() for u in led.source_uids]),
+            "log_wealth": (None if led.log_wealth is None
+                           else [float(x) for x in led.log_wealth]),
+            "engine": led.engine, "continuations": int(led.continuations)}
+
+
+def _task_campaign(task, save):
+    """Reference campaign objects, in this order: ``task["offsets"]``
+    (``["stream" | "seam", args]``: the offsets ``stream_offsets`` or
+    ``seam_offsets`` returns, or its ``ValueError`` message),
+    ``task["digests"]``
+    (``CampaignSpec`` keyword sets whose ``digest()`` to report, as
+    strings), ``task["spans"]`` (their ``default_span``),
+    ``task["ledgers"]`` (``{"spec", "path", "set"}``: a fresh
+    ``CampaignLedger`` with the fields of ``set`` replaced, saved at
+    ``path``), ``task["runs"]`` (``{"spec", "phases", "fresh"}``: a
+    ``Campaign`` on one session shared by the runs, or on a new one with
+    ``fresh``, run to its end or for ``phases`` calls of
+    ``run_next_phase``; ``traces`` counts the runners it built), ``task["loads"]`` (ledger files read with
+    ``CampaignLedger.load``, and whether they match ``"spec"``)."""
+    from repro.core.api import CampaignLedger, CampaignSpec, PoolSession
+    from repro.core.campaign import Campaign, default_span
+    from repro.rng import generators as G
+    offsets = []
+    for kind, args in task.get("offsets", []):
+        fn = G.stream_offsets if kind == "stream" else G.seam_offsets
+        try:
+            offsets.append({"value": fn(*args).tolist()})
+        except ValueError as exc:
+            offsets.append({"error": str(exc)})
+    out = {"offsets": offsets, "digests": [str(CampaignSpec(**_tuples(kw)).digest())
+                       for kw in task.get("digests", [])],
+           "spans": [default_span(CampaignSpec(**_tuples(kw)))
+                     for kw in task.get("spans", [])]}
+    for item in task.get("ledgers", []):
+        led = CampaignLedger.fresh(CampaignSpec(**_tuples(item["spec"])))
+        for key, value in item.get("set", {}).items():
+            old = getattr(led, key)
+            setattr(led, key, np.asarray(value, old.dtype)
+                    if isinstance(old, np.ndarray) else value)
+        led.save(item["path"])
+    runs, shared = [], PoolSession()
+    for item in task.get("runs", []):
+        session = PoolSession() if item.get("fresh") else shared
+        traces = session.total_traces
+        camp = Campaign(session, CampaignSpec(**_tuples(item["spec"])))
+        if item.get("phases") is None:
+            res = camp.run()
+        else:
+            for _ in range(item["phases"]):
+                camp.run_next_phase()
+            res = camp.result_snapshot()
+        runs.append({
+            "decisions": [int(x) for x in res.decisions],
+            "decided_phase": [int(x) for x in res.decided_phase],
+            "phase_names": list(res.phase_names),
+            "rounds_run": int(res.rounds_run),
+            "continuations": int(res.continuations),
+            "log_wealth": (None if res.log_wealth is None
+                           else [float(x) for x in res.log_wealth]),
+            "span": int(camp.span),
+            "traces": int(session.total_traces - traces),
+            "ledger": _ledger_fields(camp.ledger)})
+    out["runs"] = runs
+    out["loads"] = []
+    for item in task.get("loads", []):
+        led = CampaignLedger.load(item["path"])
+        row = _ledger_fields(led)
+        if item.get("spec") is not None:
+            row["matches"] = bool(led.matches(
+                CampaignSpec(**_tuples(item["spec"]))))
+        out["loads"].append(row)
+    return out
+
+
 def _task_sequential(task, save):
     """The reference's stock-TestU01 baseline (``pool.run_sequential``)
     and whole-plan runner (``pool.make_batch_runner``, one worker, the
@@ -377,7 +482,8 @@ def _task_sequential(task, save):
 
 _TASKS = {"words": _task_words, "families": _task_families,
           "tables": _task_tables, "pool": _task_pool, "cli": _task_cli,
-          "ckpt": _task_ckpt, "sequential": _task_sequential}
+          "ckpt": _task_ckpt, "sequential": _task_sequential,
+          "captured": _task_captured, "campaign": _task_campaign}
 
 
 def _main(spec_path: str, out_dir: str) -> None:
