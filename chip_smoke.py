@@ -88,15 +88,29 @@ Phases, one line each (details in ``reports/chip_smoke/chip_smoke.json``):
    resumed to the same matrix, then run a third time (``rounds=0``);
    the CLI under ``--verdict-engine evalue``; and the capture cut to 2
    sub-streams at the default span of a x0.25 wave, screened beside
-   splitmix64: its cells decided as splitmix64's.
+   splitmix64: its cells decided as splitmix64's;
+10. elastic width and the fault domain, BigCrush x1.0 on the kernels:
+   splitmix64, randu and mwc at W=8 fixed against 8 -> 3 -> 8 resized
+   between polls (``PoolSession.resize``), under lpt and over_decompose,
+   in turns: every (stat, p) bitwise, one runner build per width; the CLI
+   with ``--ckpt --workers 8`` SIGKILLed at a third of the jobs and
+   resumed with ``--workers 4`` (bitwise the uninterrupted run, then
+   ``rounds=0``), and ``--resize-at 2:4,5:8`` (its ``resizes``); a
+   composed fault plan at W=8 (evict, corrupt, straggle past the
+   deadline, lose_worker to 6, a slot quarantined after 2 faults), in
+   turns with the fault-free run: bitwise, the ledger replayed, host ms
+   per round of injection, gate and health; the CLI under ``--inject``
+   twice (the same ``faults`` ledger) and killed mid-fault with ``--ckpt``
+   and resumed, bitwise phase 4's fault-free run.
 
 Phase 3 times every kernel at the shapes the main paths gave it (BigCrush
 for the battery kernels and mwc, phase 6 for flash attention).
 
-Any failure raises, and the script exits non-zero without a result line.
-The kernels' JSON adds each kernel's launches in phases 8 and 9
-(``launches_captured_bigcrush``, ``launches_campaign``) beside those of
-the main path. The last three lines are the kernels' JSON, the card, and
+Any failure raises, and the script exits non-zero without a result line;
+the traceback and ``nvidia-smi -q`` go to ``reports/chip_smoke/chip_smoke_failure.txt``.
+The kernels' JSON adds each kernel's launches in phases 8, 9 and 10
+(``launches_captured_bigcrush``, ``launches_campaign``,
+``launches_elastic_faults``) beside those of the main path. The last three lines are the kernels' JSON, the card, and
 ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -167,6 +181,33 @@ CAMPAIGN_ARGS = ["--campaign", "--battery", "bigcrush", "--gen",
                  "splitmix64,pcg32,threefry,lcg64,xorshift64s,msweyl,randu,"
                  "minstd", "--streams", "4", "--waves", "0.25,1.0",
                  "--seed", "7"]
+# phase 10: elastic width and the fault domain at BigCrush x1.0 (106 jobs,
+# 14 rounds at W=8), mwc on its kernel beside splitmix64 and randu
+ELASTIC_BATTERY, ELASTIC_SCALE = "bigcrush", 1.0
+ELASTIC_GENS = ("splitmix64", "randu", "mwc")
+ELASTIC_ARGS = ["--battery", ELASTIC_BATTERY, "--gen", ",".join(ELASTIC_GENS),
+                "--scale", str(ELASTIC_SCALE), "--seed", "7"]
+# (rounds polled, then the width to resize to): 8 -> 3 -> 8 mid-battery
+BOUNCE = [(4, 3), (8, 8)]
+RESIZE_AT = "2:4,5:8"
+# the composed plan at W=8 on splitmix64 and randu: an evict, a corrupt
+# (p bit-flipped, caught by the gate), a straggle past the deadline, a
+# worker lost (to 6), and slot 5 faulting (p 0.9) until quarantined after
+# 2 faults in a row (the pool walks down until slot 5 is gone)
+FAULT_GENS = ("splitmix64", "randu")
+FAULT_RULES = [dict(kind="evict", round=0, slot=0),
+               dict(kind="corrupt", round=1, slot=1),
+               dict(kind="straggle", round=2, slot=2, delay_s=90.0),
+               dict(kind="lose_worker", round=3, width=6),
+               dict(kind="evict", slot=5, p=0.9)]
+FAULT_RETRY = dict(max_retries=8, deadline=60.0, quarantine_after=2)
+# the CLI's plan (the CLI sets no deadline or quarantine), with faults
+# before and after the kill at a third of the jobs
+CLI_FAULT_RULES = [dict(kind="evict", round=1, slot=0),
+                   dict(kind="corrupt", round=3, slot=1),
+                   dict(kind="lose_worker", round=4, width=6),
+                   dict(kind="evict", round=8, slot=2),
+                   dict(kind="straggle", round=9, slot=3, delay_s=5.0)]
 # families whose float path was seen not to repeat bit for bit on the card
 # (ROADMAP queue 3): only these are held to the parity tolerance, by name,
 # when a resumed run is compared with an uninterrupted one
@@ -711,11 +752,11 @@ def compare_bitwise(a, b, what, entries):
     return sorted(loose)
 
 
-def kill_and_resume(name, args, n_jobs):
+def kill_and_resume(name, args, n_jobs, resume_args=None):
     """Start ``args`` with a fresh checkpoint, kill it once the file holds
-    a third of the ``n_jobs`` job ids, and run the same command again to
-    its end. Returns (jobs saved at the kill, the resumed run's code,
-    output and report, the checkpoint path)."""
+    a third of the ``n_jobs`` job ids, and run the same command (or
+    ``resume_args``) again to its end. Returns (jobs saved at the kill,
+    the resumed run's code, output and report, the checkpoint path)."""
     from repro_torch.core.api import Checkpoint
     ckpt = os.path.join(OUT_DIR, f"{name}.ck")
     if os.path.exists(ckpt):
@@ -729,7 +770,8 @@ def kill_and_resume(name, args, n_jobs):
           f"{name}: killed with {saved} of {n_jobs} job ids saved")
     print(f"[resume] {name}: killed after {secs:.1f}s with {saved} of "
           f"{n_jobs} job ids in the checkpoint", flush=True)
-    code, out, rep, secs = run_proc(f"{name}_resumed", args, ckpt)
+    code, out, rep, secs = run_proc(f"{name}_resumed", resume_args or args,
+                                    ckpt)
     return saved, code, out, rep, ckpt, secs
 
 
@@ -827,6 +869,211 @@ def captured_phase(tmp, big_ref, big_entries, card):
             "launches": launches, "captured_rounds": rounds,
             "prefetch_ms": prefetch_ms, "h2d_bytes": h2d,
             "saved_at_kill": saved, "resumed_rounds": resumed_rounds}, path
+
+
+def pool_run(spec, steps=(), width=8):
+    """One run of ``spec`` on a new cuda session of ``width`` slots, with
+    ``steps`` (rounds to poll, then the width to resize to) before it is
+    driven to its end. Returns (result, handle, session, wall seconds)."""
+    import torch
+    from repro_torch.core.api import PoolSession
+    session = PoolSession(n_workers=width, device="cuda")
+    t0 = time.perf_counter()
+    handle = session.submit(spec)
+    for rounds, w in steps:
+        for _ in range(rounds):
+            handle.poll()
+        session.resize(w)
+    res = handle.result()
+    torch.cuda.synchronize()
+    return res, handle, session, time.perf_counter() - t0
+
+
+def same_results(a, b, what):
+    """Two API results: the same verdicts and every (stat, p) bit for bit."""
+    for gen, ra in a.runs.items():
+        rb = b.runs[gen]
+        check(ra.verdict.decision == rb.verdict.decision,
+              f"{what} {gen}: verdict {ra.verdict.decision} != "
+              f"{rb.verdict.decision}")
+        diff = sorted(k for k in set(ra.results) | set(rb.results)
+                      if ra.results.get(k) != rb.results.get(k))
+        check(not diff, f"{what} {gen}: tests {diff[:6]} differ, e.g. "
+                        f"{[(ra.results.get(k), rb.results.get(k)) for k in diff[:2]]}")
+
+
+def elastic_fault_phase(card, big_ref, big_entries):
+    """Phase 10: elastic width and the fault domain at BigCrush x1.0 on
+    the kernels. W=8 fixed against 8 -> 3 -> 8 (lpt and over_decompose),
+    bitwise; the CLI with --ckpt --workers 8 killed at a third and resumed
+    with --workers 4, bitwise, then rounds=0; --resize-at; a composed
+    fault plan at W=8 (evict, corrupt, straggle past the deadline, a lost
+    worker, a quarantined slot), bitwise the fault-free run and replayed
+    bit for bit; the CLI under --inject killed mid-fault and resumed,
+    bitwise phase 4's run. Launch counts are zeroed just before the phase
+    and read just after."""
+    from repro_torch.core.api import RunSpec
+    from repro_torch.core.faults import FaultPlan, FaultRule
+    from repro_torch.core.policies import RetryPolicy
+    n_jobs = len(big_entries)
+    zero_counts()
+    details = {}
+    # resize 8 -> 3 -> 8 between polls, in turns with the fixed run
+    for policy in ("lpt", "over_decompose"):
+        spec = RunSpec(ELASTIC_BATTERY, ELASTIC_GENS, 7, scale=ELASTIC_SCALE,
+                       policy=policy, backend="accelerated")
+        walls = {"fixed": [], "resized": []}
+        fixed = None
+        for kind in ("fixed", "resized", "resized", "fixed"):
+            res, handle, session, wall = pool_run(
+                spec, BOUNCE if kind == "resized" else ())
+            walls[kind].append(wall)
+            if fixed is None:
+                fixed = res
+                continue
+            same_results(res, fixed, f"{kind} {policy} vs fixed W=8")
+            if kind == "resized":
+                traces = sorted([k[2], v]
+                                for k, v in session.trace_counts.items())
+                check(traces == [[3, 1], [8, 1]],
+                      f"resized {policy}: runner builds by width {traces}")
+                rounds = (handle.rounds_run, handle.plan_rounds)
+        details[policy] = {"walls": walls, "traces": traces,
+                           "rounds_resized": rounds,
+                           "verdicts": {g: r.verdict.decision
+                                        for g, r in fixed.runs.items()}}
+        print(f"[elastic] {ELASTIC_BATTERY} x{ELASTIC_SCALE} "
+              f"{','.join(ELASTIC_GENS)} "
+              f"--policy {policy}, accelerated on cuda ({card}): W=8 fixed "
+              f"against 8 -> 3 -> 8 ({BOUNCE}): every (stat, p) bitwise, "
+              f"verdicts {details[policy]['verdicts']}; runner builds by "
+              f"width {traces}; resized rounds {rounds[0]} (plan "
+              f"{rounds[1]} at W=8); warm wall fixed "
+              f"{[round(w, 4) for w in walls['fixed']]} s, resized "
+              f"{[round(w, 4) for w in walls['resized']]} s", flush=True)
+    # the CLI with a checkpoint at W=8, killed at a third of the jobs and
+    # resumed at W=4; then run a third time; and --resize-at
+    full = run_cli("elastic_w8", ELASTIC_ARGS + ["--workers", "8"],
+                   "accelerated")
+    accel = ["--backend", "accelerated"]
+    saved, code, out, rep, ckpt, secs = kill_and_resume(
+        "elastic_resume", ELASTIC_ARGS + ["--workers", "8"] + accel, n_jobs,
+        ELASTIC_ARGS + ["--workers", "4"] + accel)
+    check(code == 1 and rep is not None and rep["workers"] == 4,
+          f"elastic resume at W=4: exit {code}")
+    resumed_rounds = rounds_line(out)
+    compare_bitwise(rep, full, "resumed at W=4 vs W=8", big_entries)
+    code, out, rep3, secs3 = run_proc(
+        "elastic_resume_again", ELASTIC_ARGS + ["--workers", "4"] + accel,
+        ckpt)
+    check(code == 1 and rounds_line(out)[0] == 0,
+          f"third elastic run: exit {code}, {rounds_line(out)}")
+    print(f"[elastic] CLI --ckpt --workers 8 killed with {saved} of {n_jobs} "
+          f"job ids saved, resumed with --workers 4 in {secs:.1f}s "
+          f"(rounds={resumed_rounds[0]}/{resumed_rounds[1]}): every (stat, "
+          f"p) bitwise the uninterrupted W=8 run's; a third run rounds=0 "
+          f"({secs3:.1f}s)", flush=True)
+    rat = run_cli("elastic_resize_at", ELASTIC_ARGS + [
+        "--workers", "8", "--resize-at", RESIZE_AT], "accelerated")
+    want = [{"round": 2, "workers": 4}, {"round": 5, "workers": 8}]
+    check(rat["resizes"] == want and rat["workers"] == 8,
+          f"--resize-at {RESIZE_AT}: resizes {rat['resizes']}")
+    compare_bitwise(rat, full, "--resize-at vs W=8", big_entries)
+    print(f"[elastic] --resize-at {RESIZE_AT}: resizes {rat['resizes']}, "
+          f"every (stat, p) bitwise the W=8 run's | wall "
+          f"{rat['_wall_s']:.2f}s (fixed W=8 {full['_wall_s']:.2f}s)",
+          flush=True)
+    details["cli"] = {"saved_at_kill": saved, "resumed_rounds":
+                      resumed_rounds, "resize_at": rat["resizes"]}
+    # the composed fault plan at W=8, against the fault-free run, in turns
+    spec = dict(battery=ELASTIC_BATTERY, generators=FAULT_GENS, seeds=7,
+                scale=ELASTIC_SCALE, backend="accelerated")
+    plan = FaultPlan(seed=7, rules=tuple(FaultRule(**r)
+                                         for r in FAULT_RULES))
+    fspec = RunSpec(**spec, inject=plan, retry=RetryPolicy(**FAULT_RETRY))
+    walls = {"clean": [], "faulted": []}
+    ledgers, clean = [], None
+    for kind in ("clean", "faulted", "faulted", "clean"):
+        res, handle, session, wall = pool_run(
+            fspec if kind == "faulted" else RunSpec(**spec))
+        walls[kind].append(wall)
+        if clean is None:
+            clean, clean_handle = res, handle
+            continue
+        same_results(res, clean, f"{kind} vs fault-free W=8")
+        if kind == "faulted":
+            kinds = {}
+            for ev in handle.fault_events:
+                kinds[ev.kind] = kinds.get(ev.kind, 0) + 1
+            check({"evict", "corrupt", "corrupt_result", "straggle",
+                   "lose_worker", "quarantine"} <= set(kinds),
+                  f"faulted run: events {kinds}")
+            ledgers.append(([e.to_dict() for e in handle.fault_events],
+                            list(handle.quarantines), res.retries,
+                            res.rounds_run, session.n_workers))
+            host_ms = {k: v * 1e3 / handle.rounds_run
+                       for k, v in handle.fault_s.items()}
+    check(ledgers[0] == ledgers[1], "the faulted run did not replay its "
+                                    "ledger bit for bit")
+    events, quarantines, retries, rounds, width = ledgers[0]
+    clean_ms = {k: v * 1e3 / clean_handle.rounds_run
+                for k, v in clean_handle.fault_s.items()}
+    details["faults"] = {"walls": walls, "events": kinds,
+                         "quarantines": quarantines, "retries": retries,
+                         "rounds": rounds, "plan_rounds":
+                         clean_handle.plan_rounds, "final_width": width,
+                         "host_ms_per_round": host_ms,
+                         "clean_host_ms_per_round": clean_ms}
+    print(f"[faults] {ELASTIC_BATTERY} x{ELASTIC_SCALE} "
+          f"{','.join(FAULT_GENS)} at W=8 under "
+          f"{len(FAULT_RULES)} rules, accelerated on cuda ({card}): events "
+          f"{kinds}, quarantines {quarantines}, pool ends at {width}; "
+          f"{rounds} rounds (fault-free {clean_handle.rounds_run}), "
+          f"{retries} release passes; every (stat, p) bitwise the "
+          f"fault-free run's, the ledger replayed bit for bit | warm wall "
+          f"faulted {[round(w, 4) for w in walls['faulted']]} s, "
+          f"fault-free {[round(w, 4) for w in walls['clean']]} s; host ms "
+          f"per round inject/gate/health "
+          + "/".join(f"{host_ms[k]:.4f}" for k in ("inject", "gate",
+                                                   "health"))
+          + " (fault-free: gate " f"{clean_ms['gate']:.4f})", flush=True)
+    # the CLI under --inject, uninterrupted twice, then killed mid-fault
+    # with --ckpt and resumed: bitwise phase 4's fault-free W=1 run
+    plan_path = os.path.join(OUT_DIR, "cli_fault_plan.json")
+    FaultPlan(seed=7, rules=tuple(FaultRule(**r)
+                                  for r in CLI_FAULT_RULES)).save(plan_path)
+    fargs = ["--battery", ELASTIC_BATTERY, "--gen", ",".join(FAULT_GENS),
+             "--scale", str(ELASTIC_SCALE), "--seed", "7", "--workers", "8",
+             "--retries", "4", "--inject", plan_path]
+    reps = [run_cli(f"faults_cli{i}", fargs, "accelerated")
+            for i in range(2)]
+    check(reps[0]["faults"] == reps[1]["faults"]
+          and set(reps[0]["faults"]) == {"plan", "events", "quarantines"},
+          "the CLI's faults ledger did not replay")
+    for r in reps:
+        compare_bitwise(r, big_ref, "--inject vs phase 4", big_entries)
+    saved, code, out, rep, _, secs = kill_and_resume(
+        "faults_resume", fargs + accel, n_jobs)
+    check(code == 1 and rep is not None and "faults" in rep,
+          f"faults resume: exit {code}")
+    compare_bitwise(rep, big_ref, "--inject resumed vs phase 4", big_entries)
+    cli_kinds = [e["kind"] for e in reps[0]["faults"]["events"]]
+    print(f"[faults] CLI --inject ({len(CLI_FAULT_RULES)} rules, W=8): "
+          f"events {cli_kinds}, twice the same ledger, every (stat, p) "
+          f"bitwise phase 4's fault-free run; killed with {saved} of "
+          f"{n_jobs} job ids saved and resumed ({secs:.1f}s, rounds="
+          f"{rounds_line(out)}, resumed events "
+          f"{[e['kind'] for e in rep['faults']['events']]}): bitwise again",
+          flush=True)
+    details["cli_faults"] = {"events": cli_kinds, "saved_at_kill": saved,
+                             "resumed_rounds": rounds_line(out)}
+    launches = launch_counts()
+    check(launches["histogram"] and launches["gf2_rank"] and launches["mwc"],
+          f"elastic/faults phase: a kernel was not launched {launches}")
+    details["launches"] = launches
+    print(f"[elastic] launches of the phase (in this process): {launches}",
+          flush=True)
+    return details
 
 
 def drive_campaign(spec, session):
@@ -1491,9 +1738,15 @@ def main():
         t2 = time.perf_counter()
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    details["phase_s"] = {"captured": t1 - t0, "campaign": t2 - t1}
+    # 10. elastic width and the fault domain
+    details["elastic_faults"] = elastic_fault_phase(card, accel["bigcrush"],
+                                                    big_entries)
+    t3 = time.perf_counter()
+    details["phase_s"] = {"captured": t1 - t0, "campaign": t2 - t1,
+                          "elastic_faults": t3 - t2}
     print(f"[time] phase 8 (captured) {t1 - t0:.1f}s, phase 9 (campaign) "
-          f"{t2 - t1:.1f}s, {t0 - t_start:.1f}s before them", flush=True)
+          f"{t2 - t1:.1f}s, phase 10 (elastic, faults) {t3 - t2:.1f}s, "
+          f"{t0 - t_start:.1f}s before them", flush=True)
 
     # the kernels at the shapes their main paths gave them
     main_calls = calls["bigcrush"]
@@ -1544,6 +1797,8 @@ def main():
             "launches_captured_bigcrush":
                 details["captured"]["launches"][name],
             "launches_campaign": details["campaign"]["launches"][name],
+            "launches_elastic_faults":
+                details["elastic_faults"]["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in
                                cases + details["parity"][name]),
             "ms": total("ms"), "device_ms": total("device_ms"),
@@ -1567,5 +1822,25 @@ def main():
     return 0
 
 
+def save_failure():
+    """After a failed run: the traceback and ``nvidia-smi -q`` into
+    ``OUT_DIR/chip_smoke_failure.txt`` (kept for a fault that does not
+    repeat, such as an illegal address after wrong kernel values)."""
+    import traceback
+    os.makedirs(OUT_DIR, exist_ok=True)
+    try:
+        smi = subprocess.run(["nvidia-smi", "-q"], capture_output=True,
+                             text=True, timeout=60).stdout
+    except (OSError, subprocess.SubprocessError) as exc:
+        smi = f"nvidia-smi -q failed: {exc}"
+    with open(os.path.join(OUT_DIR, "chip_smoke_failure.txt"), "w") as f:
+        f.write(traceback.format_exc() + "\n" + smi)
+
+
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    except Exception:
+        save_failure()
+        raise
+    sys.exit(code)

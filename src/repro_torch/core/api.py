@@ -7,7 +7,13 @@
                    backend.
   ``PoolSession``  owns the pool (W worker slots on one device) and a
                    cache of job tables and round runners keyed as in the
-                   reference, so repeated submits reuse them.
+                   reference, so repeated submits reuse them. Pool width
+                   is a runtime property: ``resize(n)`` (``grow()``/
+                   ``shrink()``: machines joining or vacating) changes it,
+                   and live runs replan their remaining jobs onto the new
+                   width at the next round boundary. Runners of other
+                   widths stay cached, so a return to a width already
+                   built builds nothing (DESIGN.md §6).
   ``BatteryRun``   the submit handle with HTCondor-shaped verbs:
                    ``poll()`` runs one round, ``held()``/``release()``
                    handle missing results, ``drive()``/``result()`` run to
@@ -33,9 +39,16 @@ sub-stream (the campaign grid's runner). ``CampaignSpec`` and
 campaign (``core/campaign.py`` drives it): the ledger is the reference's
 v3 file, which either package resumes.
 
-Elastic resize, fault injection and serving are not ported yet; the
-fields that select them do not exist here, and the CLI refuses their
-flags.
+``RunSpec.inject`` takes a ``faults.FaultPlan`` (DESIGN.md §12): a seeded
+schedule of simulated pool faults (evict, corrupt, straggle, lose_worker)
+applied on the host after each round's results are materialised
+(``pool.inject_round_faults``), then a sanity gate that turns a p outside
+[0, 1] or a non-finite result into HELD, and a per-slot health model that
+quarantines a flaky slot by shrinking the pool. Any plan that leaves a
+healthy worker stitches the fault-free run's (stat, p) bit for bit.
+
+Serving is the only part of the reference not ported yet; the CLI refuses
+its flags.
 """
 from __future__ import annotations
 
@@ -48,9 +61,11 @@ import numpy as np
 from repro_torch.ckpt import io as ckpt_io
 from repro_torch.core import stitch
 from repro_torch.core.battery import TestEntry, build_battery
+from repro_torch.core.faults import (CorruptResultError, FaultEvent,
+                                     FaultInjector, FaultPlan, WorkerHealth)
 from repro_torch.core.policies import (RetryBudgetExhausted, RetryPolicy,
                                        SchedulePolicy, get_policy)
-from repro_torch.core.pool import (gather_captured_bits,
+from repro_torch.core.pool import (gather_captured_bits, inject_round_faults,
                                    make_external_runner, make_fanout_runner,
                                    make_grid_runner, make_round_runner,
                                    word_bucket)
@@ -92,7 +107,10 @@ class RunSpec:
     (``stitch.VERDICT_ENGINES``: ``bonferroni`` or ``evalue``);
     ``stop_on_verdict`` cancels a generator's pending work once its
     verdict is decided. ``backend`` is ``reference``, ``accelerated``
-    (the hand-written CUDA kernels) or ``auto`` (accelerated on cuda)."""
+    (the hand-written CUDA kernels) or ``auto`` (accelerated on cuda).
+    ``inject`` is an optional ``faults.FaultPlan``: simulated pool faults
+    applied on the host boundary (``pool.inject_round_faults``), never
+    inside a runner, so the run replays bit for bit."""
     battery: str
     generators: Union[str, Tuple[str, ...]] = ()
     seeds: Union[int, Tuple[int, ...]] = (0,)
@@ -107,6 +125,7 @@ class RunSpec:
     backend: str = "auto"
     offsets: Optional[Union[int, Tuple[int, ...]]] = None
     sources: Optional[Tuple] = None
+    inject: Optional[FaultPlan] = None
 
     def __post_init__(self):
         if self.battery not in BATTERY_SIZES:
@@ -155,6 +174,9 @@ class RunSpec:
         if self.backend not in kernel_backends.BACKENDS:
             raise KeyError(f"unknown backend {self.backend!r}; "
                            f"known: {kernel_backends.BACKENDS}")
+        if self.inject is not None and not isinstance(self.inject, FaultPlan):
+            raise TypeError(f"inject must be a faults.FaultPlan, "
+                            f"got {type(self.inject)}")
 
     @property
     def n_generators(self) -> int:
@@ -701,7 +723,9 @@ class _Compiled:
 
 class PoolSession:
     """Owns the pool and the runner cache. ``device`` defaults to
-    ``cuda``; the CPU runs only when asked for."""
+    ``cuda``; the CPU runs only when asked for. The width is a runtime
+    property (``resize``); each width keeps its own runners, so bouncing
+    8 -> 4 -> 8 builds only the 4-wide ones."""
 
     def __init__(self, mesh=None, n_workers: Optional[int] = None,
                  device=None):
@@ -719,8 +743,31 @@ class PoolSession:
 
     @property
     def n_workers(self) -> int:
-        """Pool width (logical worker slots)."""
+        """Pool width (logical worker slots; see ``resize``)."""
         return self.mesh.n_workers
+
+    def resize(self, n_workers: int) -> int:
+        """Elastic re-meshing: set the pool width to ``n_workers`` (>= 1)
+        and return it. Live ``BatteryRun``s replan their remaining jobs
+        onto the new width at their next round boundary; results, verdict
+        state and sub-streams do not depend on the width, so nothing is
+        lost or run twice. The slots share one device, so unlike the
+        reference no width is refused for want of devices."""
+        n = int(n_workers)
+        if n < 1:
+            raise ValueError(f"pool width must be >= 1, got {n}")
+        if n != self.n_workers:
+            from repro_torch.launch.mesh import make_pool_mesh
+            self.mesh = make_pool_mesh(n, self.device)
+        return self.n_workers
+
+    def grow(self, n: int = 1) -> int:
+        """``n`` machines joined the pool (condor: their owner went idle)."""
+        return self.resize(self.n_workers + n)
+
+    def shrink(self, n: int = 1) -> int:
+        """``n`` machines vacated the pool (condor: their owner came back)."""
+        return self.resize(self.n_workers - n)
 
     @property
     def total_traces(self) -> int:
@@ -823,6 +870,15 @@ class BatteryRun:
         self.bytes_to_device = 0
         self.captured_rounds = 0
         self.cancelled = False
+        # fault domain (DESIGN.md §12), all on the host: the injector, its
+        # event ledger, the per-slot health model and the quarantines;
+        # fault_s is the host time of injection, gate and health
+        self._injector = (FaultInjector(spec.inject)
+                          if spec.inject is not None else None)
+        self.fault_events: List[FaultEvent] = []
+        self.health = WorkerHealth()
+        self.quarantines: List[dict] = []
+        self.fault_s = {"inject": 0.0, "gate": 0.0, "health": 0.0}
         G = spec.n_generators
         self._results: List[Dict[int, tuple]] = [dict() for _ in range(G)]
         # verdict state under the spec's engine: sticky per-generator
@@ -876,6 +932,25 @@ class BatteryRun:
         self._queue.extend(np.asarray(row, np.int32)
                            for row in plan.assignment)
 
+    def _sync_width(self) -> None:
+        """If the session was resized since the pending rounds were
+        planned, replan the residual jobs onto the new width at this
+        round boundary. Completed results stay: job identity does not
+        depend on the width (``pool.stream_table``), so a replan moves
+        jobs between slots and rounds, never changes which work remains."""
+        w = self.session.n_workers
+        if not self._queue or self._queue[0].shape[0] == w:
+            return
+        residual = sorted({int(j) for row in self._queue
+                           for j in row if j >= 0})
+        self._queue.clear()
+        if residual:
+            self._enqueue(residual)
+            emit_progress(self.spec.progress,
+                          f"  pool resized to {w} worker(s): {len(residual)} "
+                          f"residual job(s) replanned onto "
+                          f"{len(self._queue)} round(s)")
+
     # -- HTCondor verbs ----------------------------------------------------
 
     @property
@@ -890,7 +965,10 @@ class BatteryRun:
 
     def poll(self) -> dict:
         """Run one round for every active generator and report status;
-        under ``stop_on_verdict`` each poll is also an interim look."""
+        under ``stop_on_verdict`` each poll is also an interim look. A
+        session ``resize()`` since the last poll is absorbed first: the
+        remaining rounds are replanned onto the new width."""
+        self._sync_width()
         self._auto_cancel()
         if self._queue:
             row = self._queue.pop(0)
@@ -1015,7 +1093,15 @@ class BatteryRun:
 
     def _driver_release(self) -> int:
         """A release by the drive loop itself, the only kind that spends
-        the ``RetryPolicy`` budget."""
+        the ``RetryPolicy`` budget. It first waits the policy's backoff
+        (``RetryPolicy.backoff_for``, 0 by default), so a misbehaving
+        pool is not hammered."""
+        delay = self.spec.retry.backoff_for(self.driver_retries)
+        if delay > 0:
+            emit_progress(self.spec.progress,
+                          f"  backing off {delay:.2f}s before release "
+                          f"pass {self.driver_retries + 1}")
+            time.sleep(delay)
         self.driver_retries += 1
         return self.release()
 
@@ -1133,9 +1219,116 @@ class BatteryRun:
             self.captured_rounds += 1
             stats, ps = runner(row, bits)
             per_gen += [(g, stats[a], ps[a]) for a, g in enumerate(captured)]
+        # fault domain (DESIGN.md §12): host-side work on the round's
+        # materialised numpy results; the runners above never see a fault,
+        # the gate or a quarantine
+        t0 = time.perf_counter()
+        injected: List[FaultEvent] = []
+        resize_to: Optional[int] = None
+        if self._injector is not None:
+            per_gen = [(g, np.array(st, np.float64), np.array(pv, np.float64))
+                       for g, st, pv in per_gen]
+            injected, resize_to = inject_round_faults(
+                self._injector, self.rounds_run, row,
+                [(st, pv) for _, st, pv in per_gen],
+                deadline=self.spec.retry.deadline)
+            self.fault_events.extend(injected)
+            for ev in injected:
+                emit_progress(self.spec.progress,
+                              f"  fault[{ev.kind}] round {ev.round} "
+                              f"slot {ev.slot} job {ev.job}: {ev.detail}")
+        t1 = time.perf_counter()
+        per_gen, gate_events = self._sanity_gate(row, per_gen, injected)
+        t2 = time.perf_counter()
+        if resize_to is not None and resize_to != self.session.n_workers:
+            emit_progress(self.spec.progress,
+                          f"  worker lost: pool resizes to {resize_to}")
+            self.session.resize(resize_to)
+        self._update_health(row, injected + gate_events)
+        t3 = time.perf_counter()
+        self.fault_s["inject"] += t1 - t0
+        self.fault_s["gate"] += t2 - t1
+        self.fault_s["health"] += t3 - t2
         for g, st, pv in per_gen:
             self._results[g] = stitch.fold(row[None, :], st[None, :],
                                            pv[None, :], self._results[g])
+
+    def _sanity_gate(self, row: np.ndarray, per_gen: list,
+                     injected: List[FaultEvent]) -> tuple:
+        """The result sanity gate: a non-idle slot whose stat or p is not
+        finite, or whose p lies outside [0, 1], holds a corrupt result.
+        It is nulled to NaN, so ``stitch.missing`` marks the job HELD and
+        a release runs it again, and recorded as a ``corrupt_result``
+        event carrying the :class:`CorruptResultError` text: a silent
+        corruption becomes HELD and a retry, never a verdict. Slots an
+        injected ``evict`` or a ``straggle`` past the deadline nulled this
+        round are skipped (they are faults already accounted). Returns
+        ``(per_gen, gate_events)``."""
+        nulled = {ev.slot for ev in injected
+                  if ev.kind == "evict"
+                  or (ev.kind == "straggle" and "HELD" in ev.detail)}
+        row = np.asarray(row)
+        events: List[FaultEvent] = []
+        out = []
+        for g, st, pv in per_gen:
+            st, pv = np.asarray(st), np.asarray(pv)
+            bad = (row >= 0) & ~(np.isfinite(st) & np.isfinite(pv)
+                                 & (pv >= 0.0) & (pv <= 1.0))
+            for w in np.nonzero(bad)[0]:
+                bad[w] = int(w) not in nulled
+            if bad.any():
+                st = np.array(st, np.float64)
+                pv = np.array(pv, np.float64)
+                for w in np.nonzero(bad)[0]:
+                    err = CorruptResultError(
+                        f"job {int(row[w])} (slot {int(w)}, generator "
+                        f"position {g}) returned stat={float(st[w])!r} "
+                        f"p={float(pv[w])!r}; p must be finite and in "
+                        f"[0, 1] — result quarantined to HELD")
+                    events.append(FaultEvent(
+                        self.rounds_run, "corrupt_result", int(w),
+                        int(row[w]), -1, str(err)))
+                    emit_progress(self.spec.progress,
+                                  f"  corrupt result gated: {err}")
+                st[bad] = np.nan
+                pv[bad] = np.nan
+            out.append((g, st, pv))
+        self.fault_events.extend(events)
+        return out, events
+
+    def _update_health(self, row: np.ndarray,
+                       events: List[FaultEvent]) -> None:
+        """Advance the per-slot health model with this round and
+        quarantine flaky slots. Every non-idle slot either faulted (an
+        injected evict, corrupt or straggle, or a gated result, landed on
+        it) or ran clean; once slots' streaks reach
+        ``RetryPolicy.quarantine_after`` the pool shrinks by their number
+        through ``resize`` (to one worker at least), their residual jobs
+        replan onto the survivors at the next round boundary, and every
+        streak resets (a resize renumbers the slots)."""
+        faulted = {int(ev.slot) for ev in events if ev.slot >= 0}
+        for w in range(row.shape[0]):
+            if int(row[w]) >= 0:
+                self.health.record(w, w in faulted)
+        qa = self.spec.retry.quarantine_after
+        if not qa:
+            return
+        flaky = self.health.flaky(qa)
+        cur = self.session.n_workers
+        if not flaky or cur <= 1:
+            return
+        new_w = max(1, cur - len(flaky))
+        self.quarantines.append({"round": self.rounds_run,
+                                 "slots": flaky, "workers": new_w})
+        self.fault_events.append(FaultEvent(
+            self.rounds_run, "quarantine", flaky[0], -1, -1,
+            f"slot(s) {flaky} quarantined after {qa} consecutive "
+            f"fault(s); pool shrinks to {new_w} worker(s)"))
+        emit_progress(self.spec.progress,
+                      f"  slot(s) {flaky} quarantined — pool shrinks "
+                      f"to {new_w} worker(s)")
+        self.health.reset()
+        self.session.resize(new_w)
 
     # -- checkpointing -----------------------------------------------------
 

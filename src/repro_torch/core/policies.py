@@ -16,6 +16,7 @@ Policies are host-side and pure: ``plan`` maps (costs, workers) to a
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import Dict, List, Optional, Protocol, Sequence, Union, runtime_checkable
 
 import numpy as np
@@ -308,12 +309,47 @@ class RetryBudgetExhausted(RuntimeError):
 class RetryPolicy:
     """hold/release discipline: how many release passes the driver grants
     before exhaustion is reported as :class:`RetryBudgetExhausted`
-    (paper: condor_release). The reference's backoff, straggler deadline
-    and quarantine knobs belong to the fault domain, not ported yet."""
+    (paper: condor_release), and the fault domain's knobs (DESIGN.md
+    §12): exponential backoff between the drive loop's release passes, a
+    straggler ``deadline`` per round, and ``quarantine_after``, the
+    consecutive faults after which a worker slot leaves the pool."""
     max_retries: int = 2
+    backoff_base: float = 0.0      # seconds before the first release; 0 = off
+    backoff_mult: float = 2.0      # exponential growth per release pass
+    backoff_max: float = 60.0      # hard cap, jitter included
+    deadline: Optional[float] = None      # per-round seconds before HELD
+    quarantine_after: Optional[int] = None  # consecutive faults per slot
 
     def __post_init__(self):
         """Reject nonsense budgets up front instead of failing silently."""
         if self.max_retries < 0:
             raise ValueError(
                 f"max_retries must be >= 0, got {self.max_retries}")
+        if self.backoff_base < 0:
+            raise ValueError(
+                f"backoff_base must be >= 0, got {self.backoff_base}")
+        if self.backoff_mult < 1.0:
+            raise ValueError(
+                f"backoff_mult must be >= 1, got {self.backoff_mult}")
+        if self.backoff_max < 0:
+            raise ValueError(
+                f"backoff_max must be >= 0, got {self.backoff_max}")
+        if self.deadline is not None and self.deadline <= 0:
+            raise ValueError(
+                f"deadline must be > 0 seconds, got {self.deadline}")
+        if self.quarantine_after is not None and self.quarantine_after < 1:
+            raise ValueError(
+                f"quarantine_after must be >= 1, got {self.quarantine_after}")
+
+    def backoff_for(self, attempt: int) -> float:
+        """Seconds to wait before the drive loop's release pass ``attempt``
+        (0-based): ``base * mult**attempt`` with up to 10 % jitter that
+        is a sha256 of the attempt index, not a random draw (so a replay
+        waits the same), capped at ``backoff_max``; 0.0 when backoff is
+        off (the default)."""
+        if self.backoff_base <= 0:
+            return 0.0
+        raw = self.backoff_base * self.backoff_mult ** max(int(attempt), 0)
+        h = hashlib.sha256(f"backoff:{int(attempt)}".encode()).digest()
+        jitter = 1.0 + 0.1 * (int.from_bytes(h[:4], "big") / 2.0 ** 32)
+        return min(self.backoff_max, raw * jitter)

@@ -27,9 +27,11 @@ table in order on one worker (the stock TestU01 baseline).
 
 Job results are a pure function of the job table, the bit source, the
 seed and the offset: which slot or round runs a job changes nothing,
-which is what makes hold/release and replanning reconcilable
-(DESIGN.md §6), and a capture of a generator's words scores bitwise
-what the generator scores.
+which is what makes hold/release, replanning and a resize of the pool
+reconcilable (DESIGN.md §6), and a capture of a generator's words scores
+bitwise what the generator scores. ``inject_round_faults`` is the one
+place a simulated fault touches a round's results (DESIGN.md §12): on the
+host, after the runner returned them, before they are folded.
 """
 from __future__ import annotations
 
@@ -289,6 +291,18 @@ def make_batch_runner(entries: List[TestEntry], mesh):
         return stats[0].reshape(plan.shape), ps[0].reshape(plan.shape)
 
     return plan_fn
+
+
+def inject_round_faults(injector, round_idx, row, arrays, deadline=None):
+    """The host-side fault-injection boundary (DESIGN.md §12). The round
+    loop in ``core/api.py`` calls it after a runner has brought the round's
+    results to the host as numpy arrays and before ``stitch.fold``, so a
+    simulated eviction, corruption or straggle never reaches a kernel, a
+    runner or anything a runner caches. ``arrays`` is the round's
+    per-generator ``[(stats, ps), ...]`` (each (W,)), changed in place;
+    returns ``(events, resize_to)`` of ``FaultInjector.apply_round``."""
+    return injector.apply_round(round_idx, np.asarray(row), arrays,
+                                deadline=deadline)
 
 
 def _entry_signature(e: TestEntry) -> tuple:

@@ -41,13 +41,29 @@ finished campaign run again prints ``rounds=0``). The ``--json`` report
 has the reference's ``campaign`` key (and ``evidence`` under
 ``--verdict-engine evalue``).
 
+``--resize-at ROUND:WIDTH[,ROUND:WIDTH...]`` resizes the pool mid-battery
+(the paper's opportunistic pool, machines joining and vacating): once
+ROUND rounds have run the pool takes WIDTH worker slots and the remaining
+jobs replan onto it, so ``--resize-at 2:4,5:8`` shrinks the pool to 4
+after round 2 and grows it back to 8 after round 5. The stitched
+``(stat, p)`` are bitwise those of a fixed-width run (DESIGN.md §6); the
+``--json`` report lists the resizes under ``resizes``.
+
+``--inject PLAN.json`` runs the battery under a deterministic fault plan
+(``core/faults.py``: seeded rules of kind evict, corrupt, straggle,
+lose_worker; DESIGN.md §12), applied on the host after each round; the
+run recovers through hold/release, the sanity gate and quarantine, to
+the fault-free run's ``(stat, p)`` bit for bit, and the ``--json``
+report gains the ``faults`` key (the plan, the event ledger and the
+quarantines). ``--retries`` sets the drive loop's release budget.
+
 Exit code: a classic run exits 1 when any p-value is suspect (or, under
 ``--adaptive`` or the ``evalue`` engine, any generator FAILs), else 0; a
 campaign exits 0 when no cell is left undecided, else 1; 2 is a usage
 error, or a run whose held jobs outlived the retry budget.
 
-Flags of the reference whose parts are not ported yet (elastic resize,
-fault injection, serving) are refused with an error, never ignored.
+Flags of the reference whose part is not ported yet (serving) are
+refused with an error, never ignored.
 """
 from __future__ import annotations
 
@@ -59,8 +75,7 @@ import sys
 from typing import Optional, Sequence
 
 # reference flags whose subsystems are not ported yet: (flag, takes value)
-_NOT_PORTED = (("--inject", True), ("--resize-at", True),
-               ("--serve", False), ("--serve-state", True),
+_NOT_PORTED = (("--serve", False), ("--serve-state", True),
                ("--serve-resubmit", False), ("--serve-max-wait", True))
 
 
@@ -103,9 +118,18 @@ def build_parser() -> argparse.ArgumentParser:
                     help="reference = plain PyTorch, accelerated = the "
                          "CUDA kernels, auto = accelerated on cuda")
     ap.add_argument("--retries", type=int, default=2)
+    ap.add_argument("--inject", default=None, metavar="PLAN.json",
+                    help="run under a deterministic fault plan "
+                         "(core/faults.py JSON: seeded rules of kind "
+                         "evict/corrupt/straggle/lose_worker); --json gains "
+                         "a 'faults' ledger. The recovered run is bitwise "
+                         "the fault-free one (DESIGN.md §12)")
     ap.add_argument("--ckpt", default=None,
                     help="checkpoint path: saved after every round, "
                          "resumed from when it exists")
+    ap.add_argument("--resize-at", dest="resize_at", default=None,
+                    help="comma-separated ROUND:WIDTH pairs: resize the pool "
+                         "to WIDTH worker slots once ROUND rounds have run")
     ap.add_argument("--campaign", action="store_true",
                     help="generator-fleet screening: the --gen list x "
                          "--streams sub-streams in --waves scales with "
@@ -146,9 +170,9 @@ def _campaign(args, ap, session, positions, gens, source_specs) -> int:
     from repro_torch.core.campaign import Campaign
     from repro_torch.core.policies import RetryPolicy
     from repro_torch.stats import backends as kernel_backends
-    if args.adaptive or args.ckpt:
-        ap.error("--campaign cannot combine with --adaptive/--ckpt (its "
-                 "own ledger handles resume)")
+    if args.adaptive or args.resize_at or args.ckpt:
+        ap.error("--campaign cannot combine with --adaptive/--resize-at/"
+                 "--ckpt (its own ledger handles resume)")
     waves = (tuple(float(w) for w in args.waves.split(","))
              if args.waves else (args.scale,))
     cspec = CampaignSpec(
@@ -228,14 +252,29 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                                       "--no-stream-check")):
             if value != default:
                 ap.error(f"{name} only applies with --campaign")
+    if args.inject and args.campaign:
+        ap.error("--inject only applies to the classic run path (campaign "
+                 "chaos testing is driven through the library)")
     if args.adaptive:
         if args.policy not in ("lpt", "adaptive"):
             ap.error(f"--adaptive selects the adaptive schedule policy; "
                      f"it cannot be combined with --policy {args.policy}")
         args.policy = "adaptive"
+    resize_at = {}
+    if args.resize_at:
+        try:
+            for tok in args.resize_at.split(","):
+                rnd, width = tok.strip().split(":")
+                resize_at[int(rnd)] = int(width)
+        except ValueError:
+            ap.error(f"--resize-at wants ROUND:WIDTH[,ROUND:WIDTH...], "
+                     f"got {args.resize_at!r}")
+        if any(w < 1 for w in resize_at.values()):
+            ap.error("--resize-at widths must be >= 1")
 
     from repro_torch.core import stitch
     from repro_torch.core.api import BatteryResult, PoolSession, RunSpec
+    from repro_torch.core.faults import FaultPlan
     from repro_torch.core.policies import RetryBudgetExhausted, RetryPolicy
     from repro_torch.stats import backends as kernel_backends
 
@@ -261,12 +300,20 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     if args.campaign:
         return _campaign(args, ap, session, positions, gens, source_specs)
 
+    launch_workers = session.n_workers          # width before any resize
+    fault_plan = None
+    if args.inject:
+        try:
+            fault_plan = FaultPlan.load(args.inject)
+        except (OSError, ValueError, TypeError, KeyError) as exc:
+            ap.error(f"--inject {args.inject!r}: {exc}")
     spec = RunSpec(args.battery, sources=positions, seeds=(args.seed,),
                    scale=args.scale, policy=args.policy,
                    retry=RetryPolicy(max_retries=args.retries),
                    checkpoint_path=args.ckpt, progress=True,
                    alpha=args.alpha, stop_on_verdict=args.adaptive,
-                   verdict_engine=args.verdict_engine, backend=args.backend)
+                   verdict_engine=args.verdict_engine, backend=args.backend,
+                   inject=fault_plan)
     names = spec.generators
     backend_resolved = kernel_backends.resolve(args.backend, session.device)
     print(f"pool: {session.n_workers} workers on {session.device} | "
@@ -276,6 +323,16 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
           + (f" adaptive(alpha={args.alpha})" if args.adaptive else ""))
 
     handle = session.submit(spec)
+    resizes = []
+    for rnd in sorted(resize_at):
+        while handle.pending_rounds and handle.rounds_run < rnd:
+            handle.poll()
+        if handle.pending_rounds:
+            session.resize(resize_at[rnd])
+            resizes.append({"round": handle.rounds_run,
+                            "workers": resize_at[rnd]})
+            print(f"  resize: pool -> {resize_at[rnd]} workers after "
+                  f"round {handle.rounds_run}")
     try:
         res = handle.result()
     except RetryBudgetExhausted as exc:
@@ -297,10 +354,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
         entries = session.entries(spec)
         payload = {
             "battery": args.battery, "scale": args.scale,
-            "workers": session.n_workers, "policy": args.policy,
+            "workers": launch_workers, "policy": args.policy,
             "backend": args.backend, "backend_resolved": backend_resolved,
             "adaptive": args.adaptive, "alpha": args.alpha,
-            "resizes": [], "seed": args.seed,
+            "resizes": resizes, "seed": args.seed,
             "wall_s": round(res.wall_s, 3), "rounds_run": res.rounds_run,
             "retries": res.retries, "plan_rounds": plan_rounds, "runs": {},
         }
@@ -319,6 +376,12 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             payload["sources"] = [
                 {"spec": raw, "uid": src.uid()}
                 for raw, src in zip(source_specs, spec.sources[len(gens):])]
+        if args.inject:
+            # only under --inject: the fault and quarantine ledger
+            payload["faults"] = {
+                "plan": fault_plan.to_dict(),
+                "events": [e.to_dict() for e in handle.fault_events],
+                "quarantines": list(handle.quarantines)}
         for gen, run in runs.items():
             tests = []
             for e in entries:

@@ -336,11 +336,11 @@ def test_golden_is_the_reference_cli_output(ref):
 
 
 def test_unported_flags_are_refused():
-    """The flags whose parts are not ported yet (serving, fault
-    injection, elastic resize) are refused, never ignored."""
+    """The flags whose part is not ported yet (serving) are refused,
+    never ignored. (``--inject`` and ``--resize-at`` are ported:
+    ``tests/test_torch_faults.py``, ``tests/test_torch_elastic.py``.)"""
     for argv in (["--serve"], ["--serve-state", "d"], ["--serve-resubmit"],
-                 ["--serve-max-wait", "1"], ["--inject", "plan.json"],
-                 ["--resize-at", "1:2"]):
+                 ["--serve-max-wait", "1"]):
         with pytest.raises(SystemExit) as exc:
             cli.main(argv + ["--device", "cpu"])
         assert exc.value.code == 2, argv

@@ -30,9 +30,12 @@ EPS32 = float(np.finfo(np.float32).eps)
 RTOL, ATOL = 1e-5, 1e-7
 
 
-def run_reference(tasks: list, out_dir: str, timeout: float = 600) -> list:
+def run_reference(tasks: list, out_dir: str, timeout: float = 600,
+                  devices: int = 0) -> list:
     """Run ``tasks`` through the reference in a subprocess; returns one
-    result per task (arrays come back as numpy arrays)."""
+    result per task (arrays come back as numpy arrays). ``devices`` > 1
+    gives the subprocess that many host devices (``XLA_FLAGS``, in its
+    environment only), for reference pools wider than one device."""
     os.makedirs(out_dir, exist_ok=True)
     spec = os.path.join(out_dir, "tasks.json")
     with open(spec, "w") as f:
@@ -40,6 +43,9 @@ def run_reference(tasks: list, out_dir: str, timeout: float = 600) -> list:
     env = dict(os.environ, JAX_PLATFORMS="cpu",
                PYTHONPATH=os.path.join(REPO, "src") + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
+    env.pop("XLA_FLAGS", None)
+    if devices > 1:
+        env["XLA_FLAGS"] = f"--xla_force_host_platform_device_count={devices}"
     proc = subprocess.run([sys.executable, os.path.abspath(__file__), spec,
                            out_dir], env=env, cwd=REPO, capture_output=True,
                           text=True, timeout=timeout)
@@ -359,6 +365,118 @@ def _tuples(kw):
     return kw
 
 
+def spec_objects(kw, faults, policies):
+    """``RunSpec`` keywords from JSON, for either package: lists to
+    tuples, ``inject`` a plan dict (``faults.FaultPlan.from_dict``),
+    ``retry`` a dict of ``RetryPolicy`` keywords, ``policy`` a name or
+    ``{"over_decompose": {...}}`` (``OverDecomposePolicy`` keywords).
+    ``faults`` and ``policies`` are that package's modules."""
+    kw = _tuples(kw)
+    if isinstance(kw.get("inject"), dict):
+        kw["inject"] = faults.FaultPlan.from_dict(kw["inject"])
+    if isinstance(kw.get("retry"), dict):
+        kw["retry"] = policies.RetryPolicy(**kw["retry"])
+    if isinstance(kw.get("policy"), dict):
+        kw["policy"] = policies.OverDecomposePolicy(
+            **kw["policy"]["over_decompose"])
+    return kw
+
+
+def drive_runs(runs, api, faults, policies, ckpt_io, **session_kw):
+    """Drive battery runs step by step on either package (``api``,
+    ``faults``, ``policies`` and ``ckpt_io`` are its modules), so the
+    reference and the port take the same steps. Each run is ``{"spec":
+    RunSpec keywords (see ``spec_objects``), "session": name, "workers":
+    width of a new session of that name, "steps": [...]}``; sessions are
+    shared by name across runs, and ``"width"`` resizes the session
+    before the submit. Steps: ``["poll", n]``, ``["resize" |
+    "grow" | "shrink", n]`` (the session), ``["result"]`` (to the end;
+    a ``RetryBudgetExhausted`` is recorded, not raised),
+    ``["drive_quiet"]`` (``drive(raise_on_exhausted=False)``),
+    ``["release"]`` (a manual release), ``["drop", jobs]`` and
+    ``["copy", path]`` (on the spec's checkpoint file), ``["v2", path,
+    jobs]`` (the checkpoint, less ``jobs``, written to ``path`` in the
+    v2 layout). Returns per run: each polled round's row, the queue after
+    each width change (once the run absorbed it), counters, job-space
+    and test-space results, verdicts, fault events and quarantines, the
+    session's width and runner builds per width. ``session_kw`` goes to
+    every ``PoolSession`` (the port's ``device``)."""
+    sessions, out = {}, []
+    for run in runs:
+        name = run.get("session", "main")
+        if name not in sessions:
+            sessions[name] = api.PoolSession(n_workers=run["workers"],
+                                             **session_kw)
+        session = sessions[name]
+        if "width" in run:
+            session.resize(run["width"])
+        spec = api.RunSpec(**spec_objects(run["spec"], faults, policies))
+        handle = session.submit(spec)
+        status = handle.status()
+        rec = {"jobs_done_at_submit": status["jobs_done"],
+               "jobs_total": status["jobs_total"], "rows": [],
+               "queues": [], "exhausted": None}
+        for step in run["steps"]:
+            op = step[0]
+            if op == "poll":
+                for _ in range(step[1]):
+                    if not handle._queue:
+                        break
+                    handle._sync_width()
+                    rec["rows"].append(handle._queue[0].tolist())
+                    handle.poll()
+            elif op in ("resize", "grow", "shrink"):
+                getattr(session, op)(step[1])
+                handle._sync_width()
+                rec["queues"].append([r.tolist() for r in handle._queue])
+            elif op == "result":
+                try:
+                    res = handle.result()
+                except policies.RetryBudgetExhausted as exc:
+                    rec["exhausted"] = {"held": exc.held,
+                                        "retries": exc.retries,
+                                        "message": str(exc)}
+                    res = handle._finalize()
+                runs_ = res.runs if hasattr(res, "runs") else {
+                    spec.generators[0]: res}
+                rec["results"] = {g: {str(k): list(v)
+                                      for k, v in r.results.items()}
+                                  for g, r in runs_.items()}
+                rec["verdicts"] = {g: r.verdict.decision
+                                   for g, r in runs_.items()}
+            elif op == "drive_quiet":
+                handle.drive(raise_on_exhausted=False)
+            elif op == "release":
+                rec["released"] = handle.release()
+            elif op == "drop":
+                path = spec.checkpoint_path
+                api.Checkpoint.load(path).drop(step[1]).save(path)
+            elif op == "copy":
+                with open(spec.checkpoint_path, "rb") as f:
+                    data = f.read()
+                with open(step[1], "wb") as f:
+                    f.write(data)
+            elif op == "v2":
+                ck = api.Checkpoint.load(spec.checkpoint_path).drop(step[2])
+                ckpt_io.save(step[1], [ck.job_idx, ck.stats, ck.ps,
+                                       np.zeros(1, np.int8), np.int64(2)])
+            else:
+                raise ValueError(f"unknown step {step!r}")
+        rec.update({
+            "rounds_run": handle.rounds_run, "retries": handle.retries,
+            "driver_retries": handle.driver_retries,
+            "plan_rounds": handle.plan_rounds, "held": handle.held(),
+            "job_results": [{str(k): list(v) for k, v in r.items()}
+                            for r in handle._results],
+            "events": [e.to_dict() for e in handle.fault_events],
+            "quarantines": handle.quarantines,
+            "workers": session.n_workers,
+            "traces": sorted([k[2], v]
+                             for k, v in session.trace_counts.items())})
+        out.append(rec)
+    return out
+
+
 def _task_captured(task, save):
     """Reference captures and captured sources: ``task["captures"]``
     lists ``capture_generator`` keyword sets (files the reference
@@ -459,6 +577,71 @@ def _task_campaign(task, save):
     return out
 
 
+def _task_elastic(task, save):
+    """Reference runs across pool widths (``drive_runs``; the runner is
+    given the devices the widest pool needs), then ``task["load"]``:
+    checkpoint files read with the reference's ``Checkpoint.load``."""
+    from repro.ckpt import io as ckpt_io
+    from repro.core import api, faults, policies
+    return {"runs": drive_runs(task.get("runs", []), api, faults, policies,
+                               ckpt_io),
+            "loads": [_ckpt_fields(api.Checkpoint.load(p), save)
+                      for p in task.get("load", [])]}
+
+
+def _task_faults(task, save):
+    """The reference's fault domain: ``task["plans"]`` (``[plan dict,
+    path]``: ``FaultPlan.from_dict`` saved at path; its ``to_dict``),
+    ``task["draws"]`` (``{"plan", "rounds", "slots"}``: ``_draw`` of every
+    (rule, round, slot), slot -1 included), ``task["matches"]``
+    (``{"plan", "round", "row"}``: the (rule, slot) pairs that fire),
+    ``task["apply"]`` (``{"plan", "round", "row", "arrays", "deadline"}``:
+    ``apply_round`` on float64 arrays; the events, the width asked for and
+    the arrays after, as saved float64 arrays), ``task["backoff"]``
+    (``{"retry", "attempts"}``: ``backoff_for`` of each attempt),
+    ``task["flips"]`` (``_bit_flip`` of each value), and
+    ``task["runs"]`` (``drive_runs``)."""
+    from repro.ckpt import io as ckpt_io
+    from repro.core import api, faults, policies
+    out = {"plans": [], "draws": [], "matches": [], "apply": [],
+           "backoff": [], "flips": []}
+    for d, path in task.get("plans", []):
+        plan = faults.FaultPlan.from_dict(d)
+        plan.save(path)
+        out["plans"].append(plan.to_dict())
+    for item in task.get("draws", []):
+        inj = faults.FaultInjector(faults.FaultPlan.from_dict(item["plan"]))
+        out["draws"].append([[[bool(inj._draw(i, r, s))
+                               for s in range(-1, item["slots"])]
+                              for r in range(item["rounds"])]
+                             for i in range(len(inj.plan.rules))])
+    for item in task.get("matches", []):
+        inj = faults.FaultInjector(faults.FaultPlan.from_dict(item["plan"]))
+        out["matches"].append([[i, s] for i, _, s in inj.matches(
+            item["round"], np.asarray(item["row"]))])
+    for item in task.get("apply", []):
+        inj = faults.FaultInjector(faults.FaultPlan.from_dict(item["plan"]))
+        arrays = [(np.asarray(st, np.float64), np.asarray(pv, np.float64))
+                  for st, pv in item["arrays"]]
+        events, resize_to = inj.apply_round(
+            item["round"], np.asarray(item["row"]), arrays,
+            deadline=item.get("deadline"))
+        out["apply"].append({"events": [e.to_dict() for e in events],
+                             "resize_to": resize_to,
+                             "arrays": [[save(st), save(pv)]
+                                        for st, pv in arrays]})
+    for item in task.get("backoff", []):
+        pol = policies.RetryPolicy(**item["retry"])
+        out["backoff"].append([pol.backoff_for(a)
+                               for a in range(item["attempts"])])
+    out["flips"] = save(np.asarray([faults._bit_flip(x)
+                                    for x in task.get("flips", [])],
+                                   np.float64))
+    out["runs"] = drive_runs(task.get("runs", []), api, faults, policies,
+                             ckpt_io)
+    return out
+
+
 def _task_sequential(task, save):
     """The reference's stock-TestU01 baseline (``pool.run_sequential``)
     and whole-plan runner (``pool.make_batch_runner``, one worker, the
@@ -483,7 +666,8 @@ def _task_sequential(task, save):
 _TASKS = {"words": _task_words, "families": _task_families,
           "tables": _task_tables, "pool": _task_pool, "cli": _task_cli,
           "ckpt": _task_ckpt, "sequential": _task_sequential,
-          "captured": _task_captured, "campaign": _task_campaign}
+          "captured": _task_captured, "campaign": _task_campaign,
+          "elastic": _task_elastic, "faults": _task_faults}
 
 
 def _main(spec_path: str, out_dir: str) -> None:
