@@ -8,15 +8,20 @@ Phases, one line each (details in ``reports/chip_smoke/chip_smoke.json``):
 1. device: the card's name and power limit (nvidia-smi);
 2. build: the four CUDA kernels compiled from the checkout for sm_90a,
    one nvcc each, started together; the flash-attention library's SASS
-   must hold tensor-core (HGMMA) instructions;
+   must hold tensor-core (HGMMA) instructions, and the mwc library's no
+   CALL (its product mod the prime has no software 128-bit division);
 3. kernels: the histogram and GF(2)-rank kernels against their plain
    PyTorch versions on the card, bitwise, at the parity shapes below
    (every histogram route and its boundaries; matrices of every rank
    0-32, through the int64 entry); the flash-attention kernel against
    its plain version at the reference suite's shapes; the mwc kernel
-   against its plain loop, bitwise, at lengths around its 64-word chunk
-   and up to 2^23 words, from several seeds, two whose start carry is
-   >= a (found by search) and the largest start state; the serving shapes
+   against its plain loop, bitwise, at every BigCrush bucket (2^10-2^20
+   words; plan, per-call and device times printed), around PR 18's
+   64-word chunk, at 2^23 - 1 and 2^23, and at every length up to 2^23
+   where its launch plan changes its layout or block count, from several
+   seeds, two whose start carry is >= a (found by search) and the largest
+   start state; an empty launch (``torch.cuda._sleep(0)``) timed the same
+   way, the part of a call that no kernel's design removes; the serving shapes
    (bfloat16 and float32), one padded length and the tensor-core route's
    softcap and MQA dh-64 cases, within
    the reference suite's tolerances (2e-5 float32, 2e-2 bfloat16); the
@@ -119,6 +124,7 @@ import io
 import json
 import math
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -159,15 +165,21 @@ MAIN_ARGS = [
     ("smallcrush", ["--battery", "smallcrush", "--gen", "splitmix64,randu",
                     "--scale", "0.0625", "--seed", "7", "--adaptive"]),
 ]
-# mwc: lengths around the kernel's 64-word chunk, odd and large; start
+# mwc: lengths around PR 18's 64-word chunk, odd and large, every
+# BigCrush bucket (2^10-2^20 words a call) and 2^23 - 1, timed; start
 # states from (seed, stream), the last two found by search with a start
 # carry c0 >= a (tests/test_torch_rng.py::MWC_WIDE_CARRY), and the largest
 # state (x0 = 2^32 - 1, c0 = a), whose first step passes the prime
 # a*2^32 - 1; above MWC_ALL_STATES words the plain loop takes seconds, so
-# two states only
-MWC_PARITY = [1, 2, 63, 64, 65, (1 << 10) + 3, 1 << 20, 1 << 23]
+# two states only. Beside them, checked and not timed, every length up to
+# 2^23 where the card's plan changes its layout or its block count
+# (kernels/mwc/kernel.py::boundaries)
+MWC_BUCKETS = [1 << e for e in range(10, 21)]
+MWC_PARITY = sorted({1, 2, 63, 64, 65, (1 << 10) + 3, (1 << 23) - 1,
+                     1 << 23, *MWC_BUCKETS})
 MWC_SEEDS = [(7, 3), (42, 0), (123456, 77), (131490111, 0), (2010969873, 1)]
 MWC_ALL_STATES = 1 << 20
+MWC_BOUNDARY_LIMIT = 1 << 23
 MWC_ARGS = ["--battery", "bigcrush", "--gen", "mwc,splitmix64", "--scale",
             "1.0", "--seed", "7"]
 # phase 8: splitmix64 captured at the size BigCrush x1.0 reads (106 jobs,
@@ -385,13 +397,13 @@ def mwc_case(n, states):
     """Check the mwc kernel at ``n`` words from each state against the
     plain loop, bitwise; time the kernel (per call, device) and the loop
     (on the card's inputs: the loop, then the copy to the card) from the
-    first state."""
+    first state. Records the launch plan where the tree has one."""
     import torch
-    from repro_torch.kernels.mwc.kernel import mwc_words
+    from repro_torch.kernels.mwc import kernel as mk
     from repro_torch.kernels.mwc.ref import mwc_ref
     err = 0
     for x0, c0 in states:
-        got = mwc_words(x0, c0, n, "cuda")
+        got = mk.mwc_words(x0, c0, n, "cuda")
         torch.cuda.synchronize()
         want = mwc_ref(x0, c0, n, "cpu")
         err = max(err, int((got.cpu() - want).abs().max()) if n else 0)
@@ -401,12 +413,39 @@ def mwc_case(n, states):
     # int64 words written once; one 32x32->64-bit multiply-add a word
     bound, by = bound_ms(8 * n, 2 * n, INT32_OPS_PER_S)
     slow = n > MWC_ALL_STATES
+    plan = (list(mk.plan(n, mk.sm_count(torch.cuda.current_device())))
+            if n and hasattr(mk, "plan") else None)
     return {"n": n, "states": len(states), "max_abs_err": float(err),
-            "ms": median_ms(lambda: mwc_words(x0, c0, n, "cuda")),
-            "device_ms": device_ms(lambda: mwc_words(x0, c0, n, "cuda")),
+            "plan": plan,
+            "ms": median_ms(lambda: mk.mwc_words(x0, c0, n, "cuda")),
+            "device_ms": device_ms(lambda: mk.mwc_words(x0, c0, n, "cuda")),
             "plain_ms": median_ms(lambda: mwc_ref(x0, c0, n, "cuda"),
                                   reps=1 if slow else 3, warmup=0),
             "library_ms": None, "bound_ms": bound, "bound_by": by}
+
+
+def mwc_boundary_check(states, limit):
+    """The mwc kernel against the plain loop, bitwise, at every length up
+    to ``limit`` where the card's plan changes its layout or block count:
+    each state's loop is run once at the longest length it is checked at
+    (``limit`` for the first and the largest state, ``MWC_ALL_STATES`` for
+    the others) and each launch is held to its prefix. Returns the
+    number of lengths and launches."""
+    import torch
+    from repro_torch.kernels.mwc import kernel as mk
+    from repro_torch.kernels.mwc.ref import mwc_ref
+    lengths = mk.boundaries(limit, mk.sm_count(torch.cuda.current_device()))
+    launches = 0
+    for i, (x0, c0) in enumerate(states):
+        top = limit if i in (0, len(states) - 1) else MWC_ALL_STATES
+        want = mwc_ref(x0, c0, top, "cuda")
+        for n in lengths:
+            if n <= top:
+                got = mk.mwc_words(x0, c0, n, "cuda")
+                check(torch.equal(got, want[:n]), f"mwc n={n} state ({x0}, "
+                                                  f"{c0}): kernel != plain")
+                launches += 1
+    return len(lengths), launches
 
 
 def print_battery(name, c):
@@ -416,7 +455,9 @@ def print_battery(name, c):
         shape = f"N={c['n']} k={c['nbins']}"
         extra = f", torch.bincount {c['library_ms']:.4f} ms"
     elif name == "mwc":
-        shape, extra = f"n={c['n']} ({c['states']} state(s))", ""
+        shape = f"n={c['n']} ({c['states']} state(s))"
+        extra = (f", plan (chunk, threads, blocks) {tuple(c['plan'])}"
+                 if c.get("plan") else "")
     else:
         shape, extra = f"M={c['m']}", ""
     launches = (f" x{c['launches']} on the main path" if "launches" in c
@@ -1338,16 +1379,30 @@ def main():
         for line in info["ptxas"].splitlines():
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"  ptxas[{name}] {line.strip()}")
-    sass = subprocess.run(
-        [os.path.join(os.path.dirname(build.nvcc()), "cuobjdump"),
-         "--dump-sass", str(build.library_path("flash_attention"))],
-        capture_output=True, text=True, timeout=300, check=True).stdout
-    hgmma = sum("HGMMA" in line for line in sass.splitlines())
+
+    def sass(name):
+        return subprocess.run(
+            [os.path.join(os.path.dirname(build.nvcc()), "cuobjdump"),
+             "--dump-sass", str(build.library_path(name))],
+            capture_output=True, text=True, timeout=300, check=True).stdout
+    hgmma = sum("HGMMA" in line for line in sass("flash_attention")
+                .splitlines())
     details["flash_attention_hgmma"] = hgmma
     check(hgmma > 0, "the flash-attention library holds no HGMMA "
                      "(tensor-core) instruction")
     print(f"[build] flash_attention SASS: {hgmma} HGMMA (wgmma) "
           f"instructions", flush=True)
+    # the mwc product is 64-bit multiplies and adds: no call to a
+    # software division routine (a 128-bit %) or any other
+    instrs = [line for line in sass("mwc").splitlines()
+              if re.match(r"\s*/\*[0-9a-f]+\*/\s+\S", line)]
+    calls = [line.strip() for line in instrs if re.search(r"\bCALL\b", line)]
+    details["mwc_sass"] = {"instructions": len(instrs), "calls": calls}
+    check(instrs and not calls, f"the mwc library's SASS holds "
+                                f"{len(instrs)} instructions and CALLs "
+                                f"{calls[:4]}")
+    print(f"[build] mwc SASS: {len(instrs)} instructions, no CALL",
+          flush=True)
 
     # 3. kernels at their parity shapes
     from repro_torch.kernels.gf2_rank.kernel import gf2_rank
@@ -1362,6 +1417,20 @@ def main():
     mwc_parity = [mwc_case(n, mwc_states if n <= MWC_ALL_STATES
                            else mwc_states[:1] + mwc_states[-2:-1])
                   for n in MWC_PARITY]
+    n_lengths, n_launches = mwc_boundary_check(mwc_states,
+                                               MWC_BOUNDARY_LIMIT)
+    details["mwc_boundaries"] = {"lengths": n_lengths,
+                                 "launches": n_launches}
+    print(f"[kernels] mwc: bitwise the plain loop at {n_lengths} plan "
+          f"boundaries up to 2^23 words ({n_launches} launches, "
+          f"{len(mwc_states)} states)", flush=True)
+    # what no kernel's design can take off a call: an empty launch
+    empty = {"ms": median_ms(lambda: torch.cuda._sleep(0)),
+             "device_ms": device_ms(lambda: torch.cuda._sleep(0))}
+    details["empty_launch"] = empty
+    print(f"[kernels] empty launch (torch.cuda._sleep(0)): "
+          f"{empty['ms']:.4f} ms (device {empty['device_ms']:.4f})",
+          flush=True)
     fa_parity = [fa_case(*shape) for shape in FA_PARITY]
     details["parity"] = {"histogram": hist_parity, "gf2_rank": rank_parity,
                          "mwc": mwc_parity, "flash_attention": fa_parity}
