@@ -106,16 +106,32 @@ Phases, one line each (details in ``reports/chip_smoke/chip_smoke.json``):
    turns with the fault-free run: bitwise, the ledger replayed, host ms
    per round of injection, gate and health; the CLI under ``--inject``
    twice (the same ``faults`` ledger) and killed mid-fault with ``--ckpt``
-   and resumed, bitwise phase 4's fault-free run.
+   and resumed, bitwise phase 4's fault-free run;
+11. the screening service (``repro_torch.serve``), BigCrush x1.0 on the
+   kernels: the battery CLI with ``--serve --serve-state
+   --serve-resubmit`` on splitmix64 and randu (2 tickets, 1 batch):
+   every (stat, p) and verdict bitwise phase 4's classic run, the
+   resubmit served from the cache with no dispatch, the reference's
+   ``serve`` JSON keys; warm walls of the served and the classic
+   BigCrush in turns (the host cost of serving, printed); the daemon CLI
+   (``repro_torch.launch.serve``) on splitmix64, randu and mwc, run
+   through here, then in a subprocess SIGKILLed once its
+   ``batch-*.ck`` holds a third of the job ids, rerun (only the missing
+   jobs; every cell bitwise the uninterrupted run's, and phase 4's) and
+   run a third time (``dispatch_rounds=0``); a degraded daemon through
+   the library (a 4-slot session whose slot 1 evicts every round,
+   quarantined down): its ticket DONE, bitwise phase 4's, ``status``
+   degraded.
 
 Phase 3 times every kernel at the shapes the main paths gave it (BigCrush
 for the battery kernels and mwc, phase 6 for flash attention).
 
 Any failure raises, and the script exits non-zero without a result line;
 the traceback and ``nvidia-smi -q`` go to ``reports/chip_smoke/chip_smoke_failure.txt``.
-The kernels' JSON adds each kernel's launches in phases 8, 9 and 10
+The kernels' JSON adds each kernel's launches in phases 8, 9, 10 and 11
 (``launches_captured_bigcrush``, ``launches_campaign``,
-``launches_elastic_faults``) beside those of the main path. The last three lines are the kernels' JSON, the card, and
+``launches_elastic_faults``, ``launches_serve``) beside those of the
+main path. The last three lines are the kernels' JSON, the card, and
 ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -130,6 +146,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -247,6 +264,17 @@ SERVE = [(4, 512, 64), (2, 2048, 16)]
 # (random weights, scale 0.02); float32 rounding of two summation orders
 # through 28 layers stays far below this
 SERVE_LOGITS_ATOL = 1e-3
+# phase 11: the reference's --serve JSON keys (src/repro/launch/battery.py,
+# the serve_info dict), and the daemon's submissions: BigCrush x1.0 on the
+# kernels, mwc's words from its kernel
+SERVE_KEYS = {"state", "max_wait", "tickets", "batches", "dispatch_rounds",
+              "cache", "traces", "resubmit"}
+SERVE_TICKET_KEYS = {"ticket", "gen", "state", "batch", "cache_hits"}
+SERVE_RESUBMIT_KEYS = {"ticket", "cache_hits", "done_at_submit",
+                       "dispatches_added"}
+DAEMON_SUBMISSIONS = [{"battery": "bigcrush", "gen": g, "seed": 7,
+                       "scale": 1.0, "backend": "accelerated"}
+                      for g in ("splitmix64", "randu", "mwc")]
 GOLDEN = os.path.join(ROOT, "src", "repro_torch", "golden",
                       "smallcrush_splitmix64_randu_s7_x0.0625_adaptive.json")
 
@@ -719,27 +747,39 @@ def compare_runs(a, b, what, tol):
                                  f"{tb['stat']}/{tb['p']}")
 
 
-def run_proc(name, args, ckpt, kill_when=None, flag="--ckpt"):
-    """The battery CLI in a subprocess with ``--ckpt ckpt`` (or ``flag``:
-    ``--ledger`` for a campaign); with ``kill_when``, SIGKILLed once it
-    returns true (asked after each progress line). Returns the exit code,
+def run_proc(name, args, ckpt, kill_when=None, flag="--ckpt",
+             module="repro_torch.launch.battery"):
+    """The battery CLI (or ``module``: the serve daemon's) in a subprocess
+    with ``--ckpt ckpt`` (or ``flag``: ``--ledger`` for a campaign,
+    ``--state`` for the daemon); with ``kill_when``, SIGKILLed once it
+    returns true (asked after each progress line of the battery CLI, and
+    every 2 ms for the daemon, which prints none). Returns the exit code,
     the standard output, the JSON report (None when killed or failed) and
     the seconds it ran."""
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     path = os.path.join(OUT_DIR, f"{name}.json")
     if os.path.exists(path):
         os.remove(path)
-    cmd = [sys.executable, "-m", "repro_torch.launch.battery", *args,
-           flag, ckpt, "--json", path]
+    cmd = [sys.executable, "-m", module, *args, flag, ckpt, "--json", path]
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True, bufsize=1)
+    watcher = None
+    if kill_when and module != "repro_torch.launch.battery":
+        def watch():
+            while proc.poll() is None:
+                if kill_when():
+                    proc.kill()
+                    return
+                time.sleep(0.002)
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
     lines = []
     try:
         for line in proc.stdout:
             lines.append(line)
-            if (kill_when and line.lstrip().startswith("round ")
-                    and kill_when()):
+            if (kill_when and watcher is None
+                    and line.lstrip().startswith("round ") and kill_when()):
                 proc.kill()
                 break
         proc.wait(timeout=600)
@@ -747,6 +787,8 @@ def run_proc(name, args, ckpt, kill_when=None, flag="--ckpt"):
         if proc.poll() is None:
             proc.kill()
             proc.wait()
+        if watcher is not None:
+            watcher.join(timeout=60)
         proc.stdout.close()
     out = "".join(lines)
     with open(os.path.join(OUT_DIR, f"{name}.log"), "w") as f:
@@ -1114,6 +1156,200 @@ def elastic_fault_phase(card, big_ref, big_entries):
     details["launches"] = launches
     print(f"[elastic] launches of the phase (in this process): {launches}",
           flush=True)
+    return details
+
+
+def cache_entries(state):
+    """The result cache a daemon left under ``state``: digest -> entry."""
+    from repro_torch.serve import CacheEntry
+    root = os.path.join(state, "cache")
+    return {f[:-3]: CacheEntry.load(os.path.join(root, f))
+            for f in sorted(os.listdir(root))}
+
+
+def same_tests(results, rep_run, what):
+    """A result dict and a ``--json`` run: every test bitwise."""
+    want = {t["index"]: (t["stat"], t["p"]) for t in rep_run["tests"]
+            if ran(t)}
+    diff = sorted(k for k in set(want) | set(results)
+                  if results.get(k) != want.get(k))
+    check(not diff, f"{what}: tests {diff[:6]} differ, e.g. "
+                    f"{[(results.get(k), want.get(k)) for k in diff[:2]]}")
+
+
+def screening_phase(tmp, big_ref, mwc_ref, big_entries, card):
+    """Phase 11: the screening service (``repro_torch.serve``) at BigCrush
+    x1.0 on the kernels. The battery CLI with ``--serve --serve-state
+    --serve-resubmit`` (2 tickets, 1 batch): bitwise phase 4's BigCrush,
+    the resubmit from the cache with no dispatch, the reference's
+    ``serve`` keys; warm walls of the served and the classic BigCrush in
+    turns. The daemon CLI on splitmix64, randu and mwc: uninterrupted in
+    this process, then in a subprocess SIGKILLed once its batch
+    checkpoint holds a third of the job ids, rerun (only the missing
+    jobs, bitwise), and run a third time (``dispatch_rounds=0``). A
+    degraded daemon (a 4-slot session quarantined by a flaky slot) ends
+    DONE, bitwise, with ``status`` degraded. Launch counts are zeroed
+    just before the phase and read just after."""
+    import glob
+    from repro_torch.core.api import Checkpoint, PoolSession, RunSpec
+    from repro_torch.core.faults import FaultPlan, FaultRule
+    from repro_torch.core.policies import RetryPolicy
+    from repro_torch.launch import serve as daemon
+    from repro_torch.serve import DONE, SubmissionQueue, spec_cells
+    n_jobs = len(big_entries)
+    zero_counts()
+    details = {}
+    # the battery CLI through the service: bitwise phase 4's BigCrush
+    big = MAIN_ARGS[0][1]
+    rep = run_cli("served_bigcrush", big + [
+        "--serve", "--serve-state", os.path.join(tmp, "cli_state"),
+        "--serve-resubmit"], "accelerated")
+    sv = rep["serve"]
+    check(set(sv) == SERVE_KEYS
+          and all(set(t) == SERVE_TICKET_KEYS for t in sv["tickets"])
+          and set(sv["resubmit"]) == SERVE_RESUBMIT_KEYS,
+          f"--serve: JSON keys {sorted(sv)}")
+    check(len(sv["tickets"]) == 2 and sv["batches"] == 1
+          and all(t["state"] == "done" and t["batch"] == 0
+                  for t in sv["tickets"]),
+          f"--serve: tickets {sv['tickets']}, batches {sv['batches']}")
+    check(sv["resubmit"]["cache_hits"] == 1
+          and sv["resubmit"]["dispatches_added"] == 0
+          and sv["resubmit"]["done_at_submit"],
+          f"--serve-resubmit: {sv['resubmit']}")
+    compare_bitwise(rep, big_ref, "served bigcrush vs phase 4", big_entries)
+    print(f"[screening] bigcrush x1.0 splitmix64,randu --serve on cuda "
+          f"({card}): {len(sv['tickets'])} tickets -> {sv['batches']} "
+          f"batch, {sv['dispatch_rounds']} dispatch rounds, cache "
+          f"{sv['cache']}; every (stat, p) and verdict bitwise phase 4's "
+          f"classic run; resubmit cache_hits={sv['resubmit']['cache_hits']} "
+          f"dispatches_added={sv['resubmit']['dispatches_added']}",
+          flush=True)
+    details["cli"] = {"serve": sv, "wall_s": rep["_wall_s"]}
+    # host cost of serving: warm walls of the served (no state dir: every
+    # round dispatched) and the classic BigCrush, in turns
+    walls = {"classic": [], "served": []}
+    for kind in ("classic", "served", "served", "classic"):
+        r = run_cli(f"wall_{kind}", big + (["--serve"] if kind == "served"
+                                           else []), "accelerated")
+        check(r["rounds_run"] == big_ref["rounds_run"],
+              f"warm {kind}: {r['rounds_run']} rounds")
+        walls[kind].append(r["_wall_s"])
+    details["walls"] = walls
+    print(f"[screening] warm wall, in turns: classic "
+          f"{[round(w, 4) for w in walls['classic']]} s, served "
+          f"{[round(w, 4) for w in walls['served']]} s (the CLI in this "
+          f"process, report and JSON included)", flush=True)
+    # the daemon CLI: uninterrupted here, then killed in a subprocess and
+    # resumed, then run a third time
+    subs = os.path.join(tmp, "subs.json")
+    with open(subs, "w") as f:
+        json.dump(DAEMON_SUBMISSIONS, f)
+    digests = {d["gen"]: spec_cells(daemon.spec_from_dict(d), "cuda")[0]
+               .digest for d in DAEMON_SUBMISSIONS}
+
+    def run_daemon(name, state):
+        path = os.path.join(OUT_DIR, f"{name}.json")
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            code = daemon.main(["--submit", subs, "--state", state,
+                                "--json", path])
+        wall = time.perf_counter() - t0
+        with open(os.path.join(OUT_DIR, f"{name}.log"), "w") as f:
+            f.write(out.getvalue())
+        check(code == 0, f"{name}: daemon exit {code}")
+        with open(path) as f:
+            return json.load(f), out.getvalue(), wall
+
+    full_state = os.path.join(tmp, "daemon_full")
+    full, _, full_wall = run_daemon("daemon_full", full_state)
+    check(full["stats"]["batches"] == 1
+          and full["stats"]["dispatch_rounds"] == n_jobs,
+          f"daemon: {full['stats']}")
+    entries = cache_entries(full_state)
+    check(set(entries) == set(digests.values()),
+          f"daemon cache {sorted(entries)} != cells {digests}")
+    for gen, ref_run in (("splitmix64", big_ref["runs"]["splitmix64"]),
+                         ("randu", big_ref["runs"]["randu"]),
+                         ("mwc", mwc_ref["runs"]["mwc"])):
+        same_tests(entries[digests[gen]].results, ref_run,
+                   f"daemon {gen} vs phase 4")
+    state = os.path.join(tmp, "daemon_killed")
+
+    def third_saved():
+        found = glob.glob(os.path.join(state, "batch-*.ck"))
+        return bool(found) and (len(Checkpoint.load(found[0]).job_idx)
+                                >= -(-n_jobs // 3))
+    code, _, _, secs = run_proc("daemon_killed", ["--submit", subs], state,
+                                third_saved, flag="--state",
+                                module="repro_torch.launch.serve")
+    (batch_ck,) = glob.glob(os.path.join(state, "batch-*.ck"))
+    saved = len(Checkpoint.load(batch_ck).job_idx)
+    check(code == -9 and -(-n_jobs // 3) <= saved < n_jobs,
+          f"daemon: exit {code} with {saved} of {n_jobs} job ids saved")
+    resumed, _, resumed_wall = run_daemon("daemon_resumed", state)
+    check(resumed["stats"]["dispatch_rounds"] == n_jobs - saved,
+          f"resumed daemon ran {resumed['stats']['dispatch_rounds']} rounds "
+          f"for {n_jobs - saved} missing jobs")
+    again = cache_entries(state)
+    check(set(again) == set(entries), "resumed daemon: other cells")
+    for gen, dg in digests.items():
+        check(again[dg].results == entries[dg].results
+              and again[dg].decision == entries[dg].decision,
+              f"resumed daemon {gen}: not bitwise the uninterrupted run")
+    third, out3, third_wall = run_daemon("daemon_third", state)
+    check(third["stats"]["dispatch_rounds"] == 0
+          and "dispatch_rounds=0" in out3
+          and all(t["cache_hits"] == 1 and t["state"] == "done"
+                  for t in third["tickets"]),
+          f"third daemon run: {third['stats']}")
+    verdicts = {g: t["verdicts"][g] for g, t in zip(digests,
+                                                      full["tickets"])}
+    print(f"[screening] daemon CLI on {','.join(digests)} (bigcrush x1.0, "
+          f"accelerated): 1 batch of {n_jobs} rounds in {full_wall:.2f}s, "
+          f"cells bitwise phase 4's, verdicts {verdicts}; killed after "
+          f"{secs:.1f}s with {saved} of {n_jobs} job ids in "
+          f"{os.path.basename(batch_ck)}, rerun dispatched "
+          f"{resumed['stats']['dispatch_rounds']} rounds in "
+          f"{resumed_wall:.2f}s, every cell bitwise the uninterrupted run's; "
+          f"a third run dispatch_rounds=0 ({third_wall:.2f}s)", flush=True)
+    details["daemon"] = {"saved_at_kill": saved, "full_wall_s": full_wall,
+                         "resumed_rounds":
+                             resumed["stats"]["dispatch_rounds"],
+                         "resumed_wall_s": resumed_wall,
+                         "third_wall_s": third_wall, "verdicts": verdicts}
+    # a degraded daemon: slot 1 of a 4-slot session evicts every round and
+    # is quarantined until one slot is left
+    session = PoolSession(n_workers=4, device="cuda")
+    queue = SubmissionQueue(session, state_dir=os.path.join(tmp, "degraded"),
+                            inject=FaultPlan(rules=(FaultRule("evict",
+                                                              slot=1),)))
+    t0 = time.perf_counter()
+    ticket = queue.submit(RunSpec(
+        "bigcrush", "splitmix64", seeds=(7,), scale=1.0, policy="roundrobin",
+        retry=RetryPolicy(max_retries=10, quarantine_after=2),
+        backend="accelerated"))
+    queue.drain()
+    wall = time.perf_counter() - t0
+    stats = queue.stats()
+    check(ticket.state == DONE, f"degraded daemon: ticket {ticket.state}")
+    same_tests(ticket.result().results, big_ref["runs"]["splitmix64"],
+               "degraded daemon vs phase 4")
+    check(stats["status"] == "degraded" and stats["workers"] < 4,
+          f"degraded daemon: stats {stats}")
+    print(f"[screening] degraded daemon, bigcrush x1.0 splitmix64 at W=4 "
+          f"with slot 1 evicting every round: ticket DONE, bitwise phase "
+          f"4's; status {stats['status']}, workers {stats['workers']}, "
+          f"{stats['dispatch_rounds']} dispatch rounds in {wall:.2f}s",
+          flush=True)
+    details["degraded"] = {"stats": stats, "wall_s": wall}
+    launches = launch_counts()
+    check(launches["histogram"] and launches["gf2_rank"] and launches["mwc"],
+          f"screening phase: a kernel was not launched {launches}")
+    details["launches"] = launches
+    print(f"[screening] launches of the phase (in this process): "
+          f"{launches}", flush=True)
     return details
 
 
@@ -1811,10 +2047,19 @@ def main():
     details["elastic_faults"] = elastic_fault_phase(card, accel["bigcrush"],
                                                     big_entries)
     t3 = time.perf_counter()
+    # 11. the screening service
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    try:
+        details["screening"] = screening_phase(
+            tmp, accel["bigcrush"], accel["bigcrush_mwc"], big_entries, card)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    t4 = time.perf_counter()
     details["phase_s"] = {"captured": t1 - t0, "campaign": t2 - t1,
-                          "elastic_faults": t3 - t2}
+                          "elastic_faults": t3 - t2, "screening": t4 - t3}
     print(f"[time] phase 8 (captured) {t1 - t0:.1f}s, phase 9 (campaign) "
           f"{t2 - t1:.1f}s, phase 10 (elastic, faults) {t3 - t2:.1f}s, "
+          f"phase 11 (screening) {t4 - t3:.1f}s, "
           f"{t0 - t_start:.1f}s before them", flush=True)
 
     # the kernels at the shapes their main paths gave them
@@ -1868,6 +2113,7 @@ def main():
             "launches_campaign": details["campaign"]["launches"][name],
             "launches_elastic_faults":
                 details["elastic_faults"]["launches"][name],
+            "launches_serve": details["screening"]["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in
                                cases + details["parity"][name]),
             "ms": total("ms"), "device_ms": total("device_ms"),

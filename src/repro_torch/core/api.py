@@ -47,8 +47,8 @@ applied on the host after each round's results are materialised
 quarantines a flaky slot by shrinking the pool. Any plan that leaves a
 healthy worker stitches the fault-free run's (stat, p) bit for bit.
 
-Serving is the only part of the reference not ported yet; the CLI refuses
-its flags.
+The screening service over a session (``SubmissionQueue``, the result
+cache, the daemon CLI) is ``repro_torch.serve``.
 """
 from __future__ import annotations
 

@@ -57,26 +57,33 @@ the fault-free run's ``(stat, p)`` bit for bit, and the ``--json``
 report gains the ``faults`` key (the plan, the event ledger and the
 quarantines). ``--retries`` sets the drive loop's release budget.
 
-Exit code: a classic run exits 1 when any p-value is suspect (or, under
-``--adaptive`` or the ``evalue`` engine, any generator FAILs), else 0; a
-campaign exits 0 when no cell is left undecided, else 1; 2 is a usage
-error, or a run whose held jobs outlived the retry budget.
+``--serve`` routes the run through the screening service
+(``repro_torch.serve``, DESIGN.md §10): each ``--gen`` entry (and
+``--source`` file) is submitted as its own ticket, as separate clients
+would, and the submission queue merges them into one shared dispatch
+per round, storing every cell in the content-addressed result cache
+under ``--serve-state`` (a state directory either package's daemon
+resumes). ``--serve-resubmit`` submits the first position's spec again
+after the run, to show the cache path (zero added dispatches); the
+``--json`` report gains the ``serve`` key (tickets, batches, dispatch
+rounds, cache traffic). ``--serve`` does not combine with
+``--campaign``, ``--resize-at``, ``--ckpt`` or ``--inject``.
 
-Flags of the reference whose part is not ported yet (serving) are
-refused with an error, never ignored.
+Exit code: a classic or served run exits 1 when any p-value is suspect
+(or, under ``--adaptive`` or the ``evalue`` engine, any generator
+FAILs), else 0; a campaign exits 0 when no cell is left undecided, else
+1; 2 is a usage error, or a run whose held jobs outlived the retry
+budget.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import importlib
 import json
 import os
 import sys
 from typing import Optional, Sequence
-
-# reference flags whose subsystems are not ported yet: (flag, takes value)
-_NOT_PORTED = (("--serve", False), ("--serve-state", True),
-               ("--serve-resubmit", False), ("--serve-max-wait", True))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -145,15 +152,25 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--no-stream-check", dest="stream_check",
                     action="store_false",
                     help="skip the pairstream seam phase of a campaign")
+    ap.add_argument("--serve", action="store_true",
+                    help="submit through the screening service: one "
+                         "ticket per --gen entry, coalesced by the "
+                         "admission batcher, memoized in the result "
+                         "cache (repro_torch.serve)")
+    ap.add_argument("--serve-state", dest="serve_state", default=None,
+                    help="serve state dir (result cache + batch "
+                         "checkpoints; restart-resumable)")
+    ap.add_argument("--serve-resubmit", dest="serve_resubmit",
+                    action="store_true",
+                    help="resubmit the first generator's spec after "
+                         "completion (cache-hit demo: zero dispatches)")
+    ap.add_argument("--serve-max-wait", dest="serve_max_wait",
+                    type=float, default=0.0,
+                    help="admission fairness bound (seconds) for --serve")
     ap.add_argument("--device", default="cuda",
                     help="torch device the pool runs on (default cuda)")
     ap.add_argument("--json", dest="json_path", default=None,
                     help="write a machine-readable report to this path")
-    for flag, takes_value in _NOT_PORTED:
-        ap.add_argument(flag, dest="unported_" + flag[2:].replace("-", "_"),
-                        **({"default": None} if takes_value
-                           else {"action": "store_true"}),
-                        help="not ported yet (refused)")
     return ap
 
 
@@ -236,14 +253,69 @@ def _campaign(args, ap, session, positions, gens, source_specs) -> int:
     return 0 if n_open == 0 else 1
 
 
+def _serve(args, session, spec):
+    """The ``--serve`` path: one ticket per source position of ``spec``,
+    drained together, then (``--serve-resubmit``) the first position's
+    spec again. Returns the runs by generator name and the ``serve``
+    section of the ``--json`` report."""
+    from repro_torch.serve import SubmissionQueue
+    queue = SubmissionQueue(session=session, state_dir=args.serve_state,
+                            max_wait=args.serve_max_wait)
+    # one ticket per position: independent clients whose compatible specs
+    # the admission batcher merges into shared dispatches
+    gen_specs = [dataclasses.replace(spec, generators=(), seeds=(seed,),
+                                     sources=(src,), progress=False)
+                 for src, seed in zip(spec.sources, spec.seeds)]
+    tickets = [queue.submit(s) for s in gen_specs]
+    queue.drain()
+    names = spec.generators
+    runs = {g: t.result() for g, t in zip(names, tickets)}
+    resubmit = None
+    if args.serve_resubmit:
+        before = queue.dispatch_rounds
+        rticket = queue.submit(gen_specs[0])
+        done_at_submit = rticket.done
+        queue.drain()
+        rticket.result()
+        resubmit = {"ticket": rticket.id,
+                    "cache_hits": rticket.cache_hits,
+                    "done_at_submit": done_at_submit,
+                    "dispatches_added": queue.dispatch_rounds - before}
+        print(f"  resubmit {names[0]}: cache_hits={rticket.cache_hits} "
+              f"dispatches_added={resubmit['dispatches_added']}")
+    stats = queue.stats()
+    print(f"serve: {len(tickets)} ticket(s) -> "
+          f"{stats['batches']} batch(es), "
+          f"{stats['dispatch_rounds']} dispatch round(s), "
+          f"{stats['cache']['hits']} cache hit(s)")
+    return runs, {
+        "state": args.serve_state, "max_wait": args.serve_max_wait,
+        "tickets": [{"ticket": t.id, "gen": g, "state": t.state,
+                     "batch": t.batch_id, "cache_hits": t.cache_hits}
+                    for g, t in zip(names, tickets)],
+        "batches": stats["batches"],
+        "dispatch_rounds": stats["dispatch_rounds"],
+        "cache": stats["cache"], "traces": stats["traces"],
+        "resubmit": resubmit}
+
+
 def main(argv: Optional[Sequence[str]] = None) -> int:
     """Run the CLI; returns the exit code."""
     ap = build_parser()
     args = ap.parse_args(argv)
-    for flag, _ in _NOT_PORTED:
-        if getattr(args, "unported_" + flag[2:].replace("-", "_")):
-            ap.error(f"{flag} is not ported to repro_torch yet; run it "
-                     f"with python -m repro.launch.battery")
+    if not args.serve:
+        for value, default, name in ((args.serve_state, None,
+                                      "--serve-state"),
+                                     (args.serve_resubmit, False,
+                                      "--serve-resubmit"),
+                                     (args.serve_max_wait, 0.0,
+                                      "--serve-max-wait")):
+            if value != default:
+                ap.error(f"{name} only applies with --serve")
+    elif args.campaign or args.resize_at or args.ckpt:
+        ap.error("--serve cannot combine with --campaign/--resize-at/"
+                 "--ckpt (serve batches own their checkpoints under "
+                 "--serve-state)")
     if not args.campaign:
         for value, default, name in ((args.waves, None, "--waves"),
                                      (args.streams, 1, "--streams"),
@@ -252,9 +324,10 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
                                       "--no-stream-check")):
             if value != default:
                 ap.error(f"{name} only applies with --campaign")
-    if args.inject and args.campaign:
-        ap.error("--inject only applies to the classic run path (campaign "
-                 "chaos testing is driven through the library)")
+    if args.inject and (args.serve or args.campaign):
+        ap.error("--inject only applies to the classic run path (serve/"
+                 "campaign chaos testing is driven through the library: "
+                 "SubmissionQueue(inject=...))")
     if args.adaptive:
         if args.policy not in ("lpt", "adaptive"):
             ap.error(f"--adaptive selects the adaptive schedule policy; "
@@ -322,33 +395,48 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
           + (f"->{backend_resolved}" if args.backend == "auto" else "")
           + (f" adaptive(alpha={args.alpha})" if args.adaptive else ""))
 
-    handle = session.submit(spec)
     resizes = []
-    for rnd in sorted(resize_at):
-        while handle.pending_rounds and handle.rounds_run < rnd:
-            handle.poll()
-        if handle.pending_rounds:
-            session.resize(resize_at[rnd])
-            resizes.append({"round": handle.rounds_run,
-                            "workers": resize_at[rnd]})
-            print(f"  resize: pool -> {resize_at[rnd]} workers after "
-                  f"round {handle.rounds_run}")
-    try:
-        res = handle.result()
-    except RetryBudgetExhausted as exc:
-        print(f"error: {exc}", file=sys.stderr)
-        return 2
-    runs = res.runs if isinstance(res, BatteryResult) else {names[0]: res}
+    serve_info = None
+    if args.serve:
+        try:
+            runs, serve_info = _serve(args, session, spec)
+        except RetryBudgetExhausted as exc:
+            print(f"error: {exc}", file=sys.stderr)
+            return 2
+        wall_s = max(r.wall_s for r in runs.values())
+        rounds_run = max(r.rounds_run for r in runs.values())
+        retries = max(r.retries for r in runs.values())
+        counters = ""
+    else:
+        handle = session.submit(spec)
+        for rnd in sorted(resize_at):
+            while handle.pending_rounds and handle.rounds_run < rnd:
+                handle.poll()
+            if handle.pending_rounds:
+                session.resize(resize_at[rnd])
+                resizes.append({"round": handle.rounds_run,
+                                "workers": resize_at[rnd]})
+                print(f"  resize: pool -> {resize_at[rnd]} workers after "
+                      f"round {handle.rounds_run}")
+        try:
+            res = handle.result()
+        except RetryBudgetExhausted as exc:
+            print(f"error: {exc}", file=sys.stderr)
+            return 2
+        runs = (res.runs if isinstance(res, BatteryResult)
+                else {names[0]: res})
+        wall_s, rounds_run, retries = res.wall_s, res.rounds_run, res.retries
+        counters = f" words={handle.words_generated}" + (
+            f" captured_rounds={handle.captured_rounds} prefetch_ms="
+            f"{handle.prefetch_s * 1e3:.1f} h2d_bytes="
+            f"{handle.bytes_to_device}" if handle.captured_rounds else "")
     for run in runs.values():
         print(run.report)
     for gen, run in runs.items():
         print(f"verdict[{gen}]: {run.verdict}")
     plan_rounds = next(iter(runs.values())).plan_rounds
-    print(f"\nwall={res.wall_s:.1f}s rounds={res.rounds_run}/{plan_rounds}"
-          f" retries={res.retries} words={handle.words_generated}"
-          + (f" captured_rounds={handle.captured_rounds} prefetch_ms="
-             f"{handle.prefetch_s * 1e3:.1f} h2d_bytes="
-             f"{handle.bytes_to_device}" if handle.captured_rounds else ""))
+    print(f"\nwall={wall_s:.1f}s rounds={rounds_run}/{plan_rounds}"
+          f" retries={retries}" + counters)
 
     if args.json_path:
         entries = session.entries(spec)
@@ -358,9 +446,11 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
             "backend": args.backend, "backend_resolved": backend_resolved,
             "adaptive": args.adaptive, "alpha": args.alpha,
             "resizes": resizes, "seed": args.seed,
-            "wall_s": round(res.wall_s, 3), "rounds_run": res.rounds_run,
-            "retries": res.retries, "plan_rounds": plan_rounds, "runs": {},
+            "wall_s": round(wall_s, 3), "rounds_run": rounds_run,
+            "retries": retries, "plan_rounds": plan_rounds, "runs": {},
         }
+        if serve_info is not None:
+            payload["serve"] = serve_info
         if args.verdict_engine != "bonferroni":
             # only under a non-default engine: the wealth trajectories
             # the anytime-valid verdicts were read off

@@ -336,11 +336,19 @@ def test_golden_is_the_reference_cli_output(ref):
 
 
 def test_unported_flags_are_refused():
-    """The flags whose part is not ported yet (serving) are refused,
-    never ignored. (``--inject`` and ``--resize-at`` are ported:
-    ``tests/test_torch_faults.py``, ``tests/test_torch_elastic.py``.)"""
-    for argv in (["--serve"], ["--serve-state", "d"], ["--serve-resubmit"],
-                 ["--serve-max-wait", "1"]):
+    """The serving flags (ported: ``tests/test_torch_serve.py``) are
+    refused where the reference refuses them, never ignored: a
+    serve-only flag without ``--serve``, and ``--serve`` with
+    ``--campaign``, ``--resize-at``, ``--ckpt`` or ``--inject``."""
+    for argv in (["--serve-state", "d"], ["--serve-resubmit"],
+                 ["--serve-max-wait", "1"],
+                 ["--serve-state", "d", "--serve-resubmit",
+                  "--serve-max-wait", "1"],
+                 ["--serve", "--campaign"], ["--serve", "--resize-at", "2:4"],
+                 ["--serve", "--ckpt", "x.ck"],
+                 ["--serve", "--inject", "plan.json"],
+                 ["--serve", "--serve-state", "d", "--serve-max-wait", "1",
+                  "--serve-resubmit", "--ckpt", "x.ck"]):
         with pytest.raises(SystemExit) as exc:
             cli.main(argv + ["--device", "cpu"])
         assert exc.value.code == 2, argv

@@ -477,6 +477,227 @@ def drive_runs(runs, api, faults, policies, ckpt_io, **session_kw):
     return out
 
 
+def _run_record(res, spec):
+    """A run result (``RunResult`` or ``BatteryResult``) as JSON."""
+    runs = res.runs if hasattr(res, "runs") else {spec.generators[0]: res}
+    return {"results": {g: {str(k): list(v) for k, v in r.results.items()}
+                        for g, r in runs.items()},
+            "verdicts": {g: r.verdict.decision for g, r in runs.items()},
+            "named": {g: g in r.report for g, r in runs.items()},
+            "rounds_run": int(res.rounds_run), "retries": int(res.retries),
+            "plan_rounds": {g: int(r.plan_rounds) for g, r in runs.items()}}
+
+
+def drive_serve(ops, api, serve, faults, policies, sessions=None,
+                **session_kw):
+    """Drive the screening service step by step on either package
+    (``api``, ``serve``, ``faults``, ``policies`` are its modules), so
+    the reference and the port take the same steps. Objects are named;
+    ``sessions`` (name -> session) may be shared between calls, so
+    scenarios reuse the runners earlier ones built. Ops (lists):
+    ``["session", s, workers]`` (a new session unless ``s`` exists);
+    ``["resize", s, workers]``; ``["queue", q, s, {"state",
+    "max_wait", "inject"}]`` (a plan dict); ``["submit", q, t, spec]``
+    (``spec_objects`` keywords, or ``{"kind": "campaign", ...}``
+    ``CampaignSpec`` keywords); ``["step", q, flush]``; ``["drain", q]``;
+    ``["start", q]``/``["stop", q]`` (the daemon thread);
+    ``["cancel", t]``; ``["result", t, timeout]``; ``["status", t]``;
+    ``["stats", q]``; ``["counters", q]`` (its ``traces`` are the runners
+built since the queue was made); ``["spoil", n]`` (from here
+    on, job 0's result of the first ``n`` dispatches that cover it is
+    NaN: the HELD condition); ``["run", r, s, spec]`` (a plain
+    ``BatteryRun``) and ``["run_poll_all", r]``, ``["run_held", r]``,
+    ``["run_release", r]``, ``["run_result", r]``, ``["run_stream", r]``,
+    ``["run_cancel", r]``, ``["run_status", r]``. Returns one record per
+    op and, under ``"tickets"``, every ticket's final state."""
+    sessions = {} if sessions is None else sessions
+    queues, bases, tickets, runs, out = {}, {}, {}, {}, []
+    orig_dispatch = api.BatteryRun._dispatch
+
+    def spec_of(kw):
+        kw = dict(kw)
+        if kw.pop("kind", "run") == "campaign":
+            return api.CampaignSpec(**_tuples(kw))
+        return api.RunSpec(**spec_objects(kw, faults, policies))
+
+    def outcome(fn, spec):
+        try:
+            res = fn()
+        except policies.RetryBudgetExhausted as exc:
+            return {"error": "RetryBudgetExhausted", "held": exc.held,
+                    "retries": exc.retries}
+        except (RuntimeError, TimeoutError) as exc:
+            return {"error": type(exc).__name__, "message": str(exc)}
+        if hasattr(res, "survivors"):
+            return {"decisions": [int(x) for x in res.decisions],
+                    "decided_phase": [int(x) for x in res.decided_phase],
+                    "survivors": len(res.survivors),
+                    "knockouts": len(res.knockouts),
+                    "rounds_run": int(res.rounds_run)}
+        return _run_record(res, spec)
+
+    try:
+        for op in ops:
+            kind, rec = op[0], None
+            if kind == "session":
+                if op[1] not in sessions:
+                    sessions[op[1]] = api.PoolSession(n_workers=op[2],
+                                                      **session_kw)
+            elif kind == "resize":
+                sessions[op[1]].resize(op[2])
+            elif kind == "queue":
+                kw = dict(op[3]) if len(op) > 3 else {}
+                if isinstance(kw.get("inject"), dict):
+                    kw["inject"] = faults.FaultPlan.from_dict(kw["inject"])
+                queues[op[1]] = serve.SubmissionQueue(
+                    session=sessions[op[2]], state_dir=kw.get("state"),
+                    max_wait=kw.get("max_wait", 0.0),
+                    inject=kw.get("inject"))
+                bases[op[1]] = sessions[op[2]].total_traces
+            elif kind == "submit":
+                t = queues[op[1]].submit(spec_of(op[3]))
+                tickets[op[2]] = t
+                rec = {"ticket": t.id, "done": t.done, "state": t.state,
+                       "cache_hits": t.cache_hits}
+            elif kind == "step":
+                rec = queues[op[1]].step(flush=op[2])
+            elif kind == "drain":
+                queues[op[1]].drain()
+            elif kind == "start":
+                rec = queues[op[1]].start().serving
+            elif kind == "stop":
+                queues[op[1]].stop()
+                rec = queues[op[1]].serving
+            elif kind == "cancel":
+                rec = tickets[op[1]].cancel()
+            elif kind == "result":
+                t = tickets[op[1]]
+                rec = outcome(lambda: t.result(timeout=op[2]), t.spec)
+            elif kind == "status":
+                rec = tickets[op[1]].status()
+            elif kind == "stats":
+                rec = queues[op[1]].stats()
+            elif kind == "counters":
+                q = queues[op[1]]
+                rec = {"batches_formed": q.batches_formed,
+                       "dispatch_rounds": q.dispatch_rounds,
+                       "traces": q.session.total_traces - bases[op[1]],
+                       "cache_len": len(q.cache), "idle": q.idle,
+                       "workers": q.session.n_workers}
+            elif kind == "spoil":
+                seen = {"n": 0}
+
+                def flaky(self, row, limit=op[1], seen=seen):
+                    orig_dispatch(self, row)
+                    if 0 in {int(j) for j in np.ravel(row)}:
+                        if seen["n"] < limit:
+                            self._results[0][0] = (float("nan"),
+                                                   float("nan"))
+                        seen["n"] += 1
+                api.BatteryRun._dispatch = flaky
+            elif kind == "run":
+                runs[op[1]] = sessions[op[2]].submit(spec_of(op[3]))
+            elif kind == "run_poll_all":
+                h = runs[op[1]]
+                while h.pending_rounds:
+                    h.poll()
+            elif kind == "run_held":
+                rec = [int(j) for j in runs[op[1]].held()]
+            elif kind == "run_release":
+                h = runs[op[1]]
+                rec = {"released": h.release(), "retries": h.retries,
+                       "driver_retries": h.driver_retries}
+            elif kind == "run_result":
+                h = runs[op[1]]
+                rec = outcome(h.result, h.spec)
+                rec.update({"retries_after": h.retries,
+                            "driver_retries": h.driver_retries,
+                            "done": h.done})
+            elif kind == "run_stream":
+                h = runs[op[1]]
+                rec = {"states": [st["state"] for st in h.stream()],
+                       "done": h.done, "held": h.held(),
+                       "driver_retries": h.driver_retries,
+                       "verdict": h.result().verdict.decision}
+            elif kind == "run_cancel":
+                rec = runs[op[1]].cancel()
+            elif kind == "run_status":
+                rec = runs[op[1]].status()["state"]
+            else:
+                raise ValueError(f"unknown op {op!r}")
+            out.append(rec)
+    finally:
+        api.BatteryRun._dispatch = orig_dispatch
+        for q in queues.values():
+            q.stop()
+    final = {name: {"id": t.id, "state": t.state, "batch": t.batch_id,
+                    "cache_hits": t.cache_hits, "failure": t.failure}
+             for name, t in tickets.items()}
+    return {"ops": out, "tickets": final}
+
+
+def _task_serve(task, save):
+    """The reference's screening service: ``task["scenarios"]`` (named op
+    lists for ``drive_serve``, in order, sharing sessions by name),
+    ``task["digests"]`` (``cell_digest``
+    argument lists), ``task["cells"]`` (``RunSpec`` keywords: their
+    ``spec_cells`` digests and ``admission_key`` as a string),
+    ``task["entries"]`` (``{"results", "n_total", "alpha", "engine",
+    "path"}``: ``CacheEntry.from_results`` saved at path; its decision,
+    completeness and ``serves``), ``task["loads"]`` (cache entry files
+    the reference loads), ``task["cli"]`` and ``task["daemon"]`` (argv
+    lists of ``repro.launch.battery`` and ``repro.launch.serve``: exit
+    codes)."""
+    import runpy
+    from repro.core import api, faults, policies
+    from repro import serve
+    shared = {}
+    out = {"scenarios": {name: drive_serve(ops, api, serve, faults,
+                                           policies, shared)
+                         for name, ops in task.get("scenarios", {}).items()},
+           "digests": [serve.cell_digest(*args)
+                       for args in task.get("digests", [])],
+           "cells": [], "entries": [], "loads": [], "cli": [],
+           "daemon": []}
+    for kw in task.get("cells", []):
+        spec = api.RunSpec(**spec_objects(kw, faults, policies))
+        out["cells"].append({"digests": [c.digest
+                                         for c in serve.spec_cells(spec)],
+                             "key": repr(serve.admission_key(spec))})
+    for item in task.get("entries", []):
+        results = {int(k): tuple(v) for k, v in item["results"].items()}
+        entry = serve.CacheEntry.from_results(
+            results, item["n_total"], item["alpha"],
+            engine=item.get("engine", "bonferroni"))
+        if item.get("path"):
+            entry.save(item["path"])
+        out["entries"].append({"decision": entry.decision,
+                               "complete": entry.complete,
+                               "serves": [entry.serves(False),
+                                          entry.serves(True)]})
+    for path in task.get("loads", []):
+        e = serve.CacheEntry.load(path)
+        out["loads"].append({"results": {str(k): list(v)
+                                         for k, v in e.results.items()},
+                             "decision": e.decision, "alpha": e.alpha,
+                             "n_total": e.n_total, "complete": e.complete,
+                             "engine": e.engine, "version": e.version})
+    for key, module in (("cli", "repro.launch.battery"),
+                        ("daemon", "repro.launch.serve")):
+        for argv in task.get(key, []):
+            saved = sys.argv
+            sys.argv = [module, *argv]
+            try:
+                runpy.run_module(module, run_name="__main__")
+                code = 0
+            except SystemExit as exc:
+                code = exc.code
+            finally:
+                sys.argv = saved
+            out[key].append(code)
+    return out
+
+
 def _task_captured(task, save):
     """Reference captures and captured sources: ``task["captures"]``
     lists ``capture_generator`` keyword sets (files the reference
@@ -667,7 +888,8 @@ _TASKS = {"words": _task_words, "families": _task_families,
           "tables": _task_tables, "pool": _task_pool, "cli": _task_cli,
           "ckpt": _task_ckpt, "sequential": _task_sequential,
           "captured": _task_captured, "campaign": _task_campaign,
-          "elastic": _task_elastic, "faults": _task_faults}
+          "elastic": _task_elastic, "faults": _task_faults,
+          "serve": _task_serve}
 
 
 def _main(spec_path: str, out_dir: str) -> None:
