@@ -121,7 +121,16 @@ Phases, one line each (details in ``reports/chip_smoke/chip_smoke.json``):
    run a third time (``dispatch_rounds=0``); a degraded daemon through
    the library (a 4-slot session whose slot 1 evicts every round,
    quarantined down): its ticket DONE, bitwise phase 4's, ``status``
-   degraded.
+   degraded;
+12. the static analyzer (``repro_torch.analysis``) against the card:
+   ``python -m repro_torch.analysis --strict --json`` in a subprocess
+   (exit 0, the reference's keys and 14 rules); one warm BigCrush x1.0
+   on the kernels under ``torch.cuda.set_sync_debug_mode("warn")``,
+   bitwise phase 4's: the syncs per round and each sync's innermost line
+   under ``src/repro_torch``, every such line in a hot-path module one
+   that RPA101/RPA102 reports; the analyzer's shared-memory budget equal
+   to the card's per-block opt-in limit, and each kernel's static shared
+   bytes equal to ptxas's.
 
 Phase 3 times every kernel at the shapes the main paths gave it (BigCrush
 for the battery kernels and mwc, phase 6 for flash attention).
@@ -277,6 +286,21 @@ DAEMON_SUBMISSIONS = [{"battery": "bigcrush", "gen": g, "seed": 7,
                       for g in ("splitmix64", "randu", "mwc")]
 GOLDEN = os.path.join(ROOT, "src", "repro_torch", "golden",
                       "smallcrush_splitmix64_randu_s7_x0.0625_adaptive.json")
+# phase 12: the reference analyzer's --json keys
+# (tests/test_analysis_cli.py) and its 14 rule codes and names
+# (src/repro/analysis/rules), which the port's catalog keeps
+ANALYSIS_KEYS = {"version", "strict", "clean", "files_scanned", "rules",
+                 "findings", "baselined", "suppressed", "stale_baseline",
+                 "counts"}
+ANALYSIS_RULES = {
+    "RPA101": "traced-python-branch", "RPA102": "traced-host-sync",
+    "RPA103": "traced-closure-mutation", "RPA106": "fault-injection-in-trace",
+    "RPA201": "cache-key-missing-field", "RPA202": "unclassified-spec-field",
+    "RPA301": "backend-registry-closure",
+    "RPA302": "unpinned-integer-reduction", "RPA303": "vmem-budget",
+    "RPA401": "offset-registry-closure", "RPA402": "version-upgrade-path",
+    "RPA403": "dynamic-registry-declaration", "RPA501": "unreachable-module",
+    "RPA502": "stale-quarantine"}
 
 
 def check(cond, msg):
@@ -1353,6 +1377,173 @@ def screening_phase(tmp, big_ref, mwc_ref, big_entries, card):
     return details
 
 
+def ptxas_smem(built):
+    """``{mangled kernel: static shared bytes}`` from ptxas's report
+    (``-Xptxas=-v``) of every kernel library: phase 2's build where it
+    compiled the library, else a compile with the same flags into a
+    temporary directory (the libraries were built already)."""
+    from repro_torch.kernels import build
+    logs = {n: built[n]["ptxas"] for n in build.SOURCES if n in built}
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ptxas_")
+    try:
+        procs = {n: subprocess.Popen(
+            [build.nvcc(), *build.NVCC_FLAGS, "-o",
+             os.path.join(tmp, f"{n}.so"), str(build.SOURCES[n])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for n in build.SOURCES if n not in logs}
+        for n, proc in procs.items():
+            logs[n] = proc.communicate(timeout=600)[0]
+            check(proc.returncode == 0, f"nvcc {n}: exit {proc.returncode}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out, entry = {}, None
+    for log in logs.values():
+        for line in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = m.group(1)
+            elif entry and re.search(r"Used \d+ registers", line):
+                m = re.search(r"(\d+) bytes smem", line)
+                out[entry] = int(m.group(1)) if m else 0
+                entry = None
+    return out
+
+
+def analysis_phase(card, big_ref, big_entries, built):
+    """Phase 12: the static analyzer (``repro_torch.analysis``) held to
+    the card. (a) ``python -m repro_torch.analysis --strict --json`` in a
+    subprocess: exit 0, the reference's keys and 14 rules. (b) one warm
+    BigCrush x1.0 of splitmix64 and randu on the kernels under
+    ``torch.cuda.set_sync_debug_mode("warn")``, bitwise phase 4's: every
+    sync the card reports is traced to its innermost line under
+    ``src/repro_torch``, and each such line in a hot-path module must be
+    one RPA101/RPA102 reports (a finding or a suppressed one). (c) the
+    analyzer's shared-memory budget equals the card's per-block opt-in
+    limit, and each kernel's static shared bytes equal ptxas's."""
+    import torch
+    from repro_torch.analysis import Project
+    from repro_torch.analysis.rules.kernels import (SMEM_BUDGET_BYTES,
+                                                    shared_memory)
+    from repro_torch.analysis.rules.trace import TRACED_MODULE_PATHS
+    from repro_torch.kernels.histogram.kernel import device_limits
+    # (a) the gate, as a user runs it
+    path = os.path.join(OUT_DIR, "analysis.json")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.analysis", "--strict", "--json",
+         path], cwd=ROOT, env=dict(os.environ, PYTHONPATH=os.path.join(
+             ROOT, "src")), capture_output=True, text=True, timeout=300)
+    gate_s = time.perf_counter() - t0
+    check(proc.returncode == 0, f"analysis --strict: exit {proc.returncode}"
+                                f"\n{proc.stdout[-3000:]}{proc.stderr[-3000:]}")
+    with open(path) as f:
+        rep = json.load(f)
+    check(set(rep) == ANALYSIS_KEYS and rep["clean"] and rep["strict"],
+          f"analysis report keys {sorted(rep)}, clean {rep.get('clean')}")
+    rules = {r["code"]: r["name"] for r in rep["rules"]}
+    check(rules == ANALYSIS_RULES, f"analysis rules {rules}")
+    reported = {(f["path"], f["line"]) for f in rep["findings"]
+                + rep["suppressed"] if f["code"] in ("RPA101", "RPA102")}
+    print(f"[analysis] --strict on Python {sys.version.split()[0]}: exit 0 in "
+          f"{gate_s:.1f}s, {rep['files_scanned']} files, {len(rules)} rules, "
+          f"{rep['counts']['findings']} findings, "
+          f"{rep['counts']['suppressed']} suppressed "
+          f"({len(reported)} RPA101/RPA102 lines)", flush=True)
+
+    # (b) host syncs of a warm BigCrush, by the innermost repro_torch line
+    import warnings
+    src = os.path.join(ROOT, "src", "repro_torch") + os.sep
+    sites = {}
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        frame, site = sys._getframe(1), ("(outside src/repro_torch)", 0)
+        while frame is not None:
+            if frame.f_code.co_filename.startswith(src):
+                site = (os.path.relpath(frame.f_code.co_filename, ROOT)
+                        .replace(os.sep, "/"), frame.f_lineno)
+                break
+            frame = frame.f_back
+        sites[site] = sites.get(site, 0) + 1
+
+    big = dict(MAIN_ARGS)["bigcrush"]
+    zero_counts()
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = record
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run = run_cli("bigcrush_syncs", big, "accelerated")
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    launches = launch_counts()
+    check(launches["histogram"] and launches["gf2_rank"],
+          f"syncs run: a kernel was not launched {launches}")
+    compare_bitwise(run, big_ref, "syncs run vs phase 4", big_entries)
+    hot = {s: n for s, n in sites.items()
+           if s[0].startswith(TRACED_MODULE_PATHS)}
+    missed = sorted(s for s in hot if s not in reported)
+    total, rounds = sum(sites.values()), run["rounds_run"]
+    print(f"[analysis] syncs of a warm bigcrush on the kernels: {total} in "
+          f"{rounds} rounds ({total / rounds:.2f} a round), "
+          f"{sum(hot.values())} at {len(hot)} hot-path lines; bitwise "
+          f"phase 4's", flush=True)
+    for (p, ln), n in sorted(sites.items(), key=lambda kv: -kv[1]):
+        tag = ("hot, reported" if (p, ln) in reported else "hot, MISSED"
+               if (p, ln) in hot else "not hot")
+        print(f"[analysis]   {n:5d} x {p}:{ln} ({tag})", flush=True)
+    check(not missed, f"syncs the analyzer does not report: {missed}")
+
+    # (c) shared memory: the budget is the card's, the static bytes ptxas's
+    dev = torch.device("cuda", 0)
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    check(SMEM_BUDGET_BYTES == optin, f"SMEM_BUDGET_BYTES {SMEM_BUDGET_BYTES} "
+                                      f"!= the card's opt-in {optin}")
+    kernels = shared_memory(Project.from_tree(ROOT))
+    ptxas = ptxas_smem(built)
+    rows = []
+    for k in kernels:
+        entries = {e: b for e, b in ptxas.items()
+                   if f"{len(k.name)}{k.name}" in e}
+        check(entries and set(entries.values()) == {k.static_bytes},
+              f"{k.name}: analyzer {k.static_bytes} static shared bytes, "
+              f"ptxas {entries}")
+        check(k.total_bytes is not None and k.total_bytes <= optin,
+              f"{k.name}: {k.total_bytes} shared bytes over {optin}")
+        rows.append({"kernel": k.name, "path": k.path,
+                     "static_bytes": k.static_bytes,
+                     "ptxas_entries": len(entries),
+                     "dynamic_bound": k.dynamic_bytes,
+                     "total_bytes": k.total_bytes})
+        print(f"[analysis] shared memory {k.name}: {k.static_bytes} B static "
+              f"(ptxas: the same in {len(entries)} entr"
+              f"{'y' if len(entries) == 1 else 'ies'}), dynamic bound "
+              f"{k.dynamic_bytes}, at most {k.total_bytes} of {optin} B",
+              flush=True)
+    matched = {e for e in ptxas for k in kernels
+               if f"{len(k.name)}{k.name}" in e}
+    check(matched == set(ptxas), f"ptxas entries the analyzer does not see: "
+                                 f"{sorted(set(ptxas) - matched)}")
+    hist_static = max(k.static_bytes for k in kernels
+                      if k.path.endswith("histogram.cu"))
+    limit = device_limits(0)[1]
+    check(limit == optin - hist_static,
+          f"histogram's dynamic limit {limit} != opt-in {optin} - "
+          f"{hist_static} static")
+    print(f"[analysis] SMEM_BUDGET_BYTES {SMEM_BUDGET_BYTES} == the card's "
+          f"opt-in per block; histogram's dynamic limit {limit} = opt-in - "
+          f"{hist_static} static ({card})", flush=True)
+    return {"gate_s": gate_s, "files_scanned": rep["files_scanned"],
+            "suppressed": rep["counts"]["suppressed"],
+            "syncs": total, "rounds": rounds,
+            "sites": [{"path": p, "line": ln, "count": n,
+                       "hot": (p, ln) in hot, "reported": (p, ln) in reported}
+                      for (p, ln), n in sorted(sites.items())],
+            "launches": launches, "wall_s": run["_wall_s"],
+            "shared_memory": rows, "optin": optin}
+
+
 def drive_campaign(spec, session):
     """Run a campaign phase by phase (``Campaign.run_next_phase``); per
     phase its wall time, cells, rounds, cells knocked out and kernel
@@ -2055,12 +2246,17 @@ def main():
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     t4 = time.perf_counter()
+    # 12. the static analyzer against the card
+    details["analysis"] = analysis_phase(card, accel["bigcrush"],
+                                         big_entries, built)
+    t5 = time.perf_counter()
     details["phase_s"] = {"captured": t1 - t0, "campaign": t2 - t1,
-                          "elastic_faults": t3 - t2, "screening": t4 - t3}
+                          "elastic_faults": t3 - t2, "screening": t4 - t3,
+                          "analysis": t5 - t4}
     print(f"[time] phase 8 (captured) {t1 - t0:.1f}s, phase 9 (campaign) "
           f"{t2 - t1:.1f}s, phase 10 (elastic, faults) {t3 - t2:.1f}s, "
-          f"phase 11 (screening) {t4 - t3:.1f}s, "
-          f"{t0 - t_start:.1f}s before them", flush=True)
+          f"phase 11 (screening) {t4 - t3:.1f}s, phase 12 (analysis) "
+          f"{t5 - t4:.1f}s, {t0 - t_start:.1f}s before them", flush=True)
 
     # the kernels at the shapes their main paths gave them
     main_calls = calls["bigcrush"]

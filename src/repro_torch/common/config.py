@@ -1,3 +1,4 @@
+# repro: quarantine -- growth-seed LM serving path (qwen2-1.5b); nothing in the battery system imports it
 """Model configuration of the LM serving path (from the reference's
 ``repro/common/config.py``: ``pad_to`` and the fields of ``ModelConfig``
 that the port reads).

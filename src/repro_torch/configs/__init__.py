@@ -1,3 +1,4 @@
+# repro: quarantine -- growth-seed LM model configs; nothing in the battery system reads them
 """Architecture registry: ``get_config(arch_id)`` / ``get_reduced(arch_id)``
 (port of ``repro/configs``).
 

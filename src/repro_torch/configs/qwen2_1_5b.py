@@ -1,3 +1,4 @@
+# repro: quarantine -- growth-seed LM model configs; nothing in the battery system reads them
 """qwen2-1.5b [arXiv:2407.10671]. 28L d1536 12H (GQA kv=2) d_ff=8960 vocab=151936, QKV bias.
 
 The reference's ``train_accum=4`` is a training knob; the port serves only.

@@ -113,19 +113,19 @@ class RunSpec:
     inside a runner, so the run replays bit for bit."""
     battery: str
     generators: Union[str, Tuple[str, ...]] = ()
-    seeds: Union[int, Tuple[int, ...]] = (0,)
+    seeds: Union[int, Tuple[int, ...]] = (0,)  # repro: runtime-arg
     scale: float = 1.0
     policy: Union[str, SchedulePolicy] = "lpt"
-    retry: RetryPolicy = RetryPolicy()
-    checkpoint_path: Optional[str] = None
-    progress: Union[bool, Callable] = False
-    alpha: float = 0.01
-    stop_on_verdict: bool = False
-    verdict_engine: str = "bonferroni"
+    retry: RetryPolicy = RetryPolicy()  # repro: runtime-arg
+    checkpoint_path: Optional[str] = None  # repro: runtime-arg
+    progress: Union[bool, Callable] = False  # repro: runtime-arg
+    alpha: float = 0.01  # repro: runtime-arg
+    stop_on_verdict: bool = False  # repro: runtime-arg
+    verdict_engine: str = "bonferroni"  # repro: runtime-arg
     backend: str = "auto"
     offsets: Optional[Union[int, Tuple[int, ...]]] = None
     sources: Optional[Tuple] = None
-    inject: Optional[FaultPlan] = None
+    inject: Optional[FaultPlan] = None  # repro: runtime-arg
 
     def __post_init__(self):
         if self.battery not in BATTERY_SIZES:

@@ -95,7 +95,7 @@ def _score(entry: TestEntry, bits, device) -> torch.Tensor:
     tensor on ``device``. The generator and captured paths share it, so
     the same bits score the same way through either."""
     stat, p = entry.kernel(bits)
-    return torch.stack([torch.as_tensor(v, device=device)
+    return torch.stack([torch.as_tensor(v, device=device)  # repro: noqa RPA102 -- v is already on device: no copy
                         .to(torch.float32).reshape(()) for v in (stat, p)])
 
 
@@ -105,7 +105,7 @@ def _job_fn(entries: List[TestEntry], device):
     (``None`` is the classic path)."""
     streams = stream_table(entries)
     sizes, bids = bucket_table(entries)
-    idle = torch.tensor([0.0, float("nan")], dtype=torch.float32,
+    idle = torch.tensor([0.0, float("nan")], dtype=torch.float32,  # repro: noqa RPA102 -- once per runner build
                         device=device)
 
     def run(job_id: int, seed: int, gen_id: int,
@@ -131,7 +131,7 @@ def _round(job, row: Sequence[int], seeds: Sequence[int],
              for s, g, o in zip(seeds, gen_ids, offsets)]
     unique = list(dict.fromkeys(lanes))
     out = torch.stack([job(int(j), *lane) for lane in unique for j in row])
-    out = out.cpu().numpy().reshape(len(unique), len(row), 2)
+    out = out.cpu().numpy().reshape(len(unique), len(row), 2)  # repro: noqa RPA102 -- the round's one result copy
     pick = [unique.index(lane) for lane in lanes]
     return out[pick, :, 0], out[pick, :, 1]
 
@@ -241,7 +241,7 @@ def _external_job_fn(entries: List[TestEntry], device):
     """``(job_id, bits) -> (stat, p)``: the captured-buffer twin of
     ``_job_fn``, with no generator; the same idle sentinel and kernel
     table, so the same bits score the same through either."""
-    idle = torch.tensor([0.0, float("nan")], dtype=torch.float32,
+    idle = torch.tensor([0.0, float("nan")], dtype=torch.float32,  # repro: noqa RPA102 -- once per runner build
                         device=device)
 
     def run(job_id: int, bits) -> torch.Tensor:
@@ -272,7 +272,7 @@ def make_external_runner(entries: List[TestEntry], mesh,
                    None if span is None
                    else words[span[0]:span[0] + span[1]])
                for spans in gathered.spans for j, span in zip(row, spans)]
-        out = torch.stack(out).cpu().numpy().reshape(
+        out = torch.stack(out).cpu().numpy().reshape(  # repro: noqa RPA102 -- the round's one result copy
             len(gathered.spans), len(row), 2)
         return out[gathered.lane_of, :, 0], out[gathered.lane_of, :, 1]
 
@@ -293,7 +293,7 @@ def make_batch_runner(entries: List[TestEntry], mesh):
     return plan_fn
 
 
-def inject_round_faults(injector, round_idx, row, arrays, deadline=None):
+def inject_round_faults(injector, round_idx, row, arrays, deadline=None):  # repro: fault-boundary
     """The host-side fault-injection boundary (DESIGN.md §12). The round
     loop in ``core/api.py`` calls it after a runner has brought the round's
     results to the host as numpy arrays and before ``stitch.fold``, so a
@@ -331,7 +331,7 @@ def run_sequential(entries: List[TestEntry], seed: int, gen_id: int,
     if job is None:
         job = _job_fn(entries, dev)
         if len(_SEQ_RUNNERS) >= _SEQ_RUNNERS_MAX:
-            _SEQ_RUNNERS.pop(next(iter(_SEQ_RUNNERS)))
-        _SEQ_RUNNERS[key] = job
+            _SEQ_RUNNERS.pop(next(iter(_SEQ_RUNNERS)))  # repro: noqa RPA103 -- cache of pure job functions
+        _SEQ_RUNNERS[key] = job  # repro: noqa RPA103 -- a race rebuilds one, results unchanged
     stats, ps = _round(job, range(len(entries)), [seed], [gen_id])
     return stats[0], ps[0]

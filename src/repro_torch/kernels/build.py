@@ -109,5 +109,5 @@ def load(name: str) -> ctypes.CDLL:
         path = library_path(name)
         if not path.exists():
             build([name])
-        lib = _LIBS[name] = ctypes.CDLL(str(path))
+        lib = _LIBS[name] = ctypes.CDLL(str(path))  # repro: noqa RPA103 -- dlopen handle, one per process
     return lib

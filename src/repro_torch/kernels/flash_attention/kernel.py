@@ -1,3 +1,4 @@
+# repro: quarantine -- growth-seed attention kernel; unrelated to the TestU01 battery kernels
 """ctypes launcher of the CUDA flash-attention forward
 (``flash_attention.cu``).
 
@@ -57,6 +58,9 @@ def _call(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, s, h, dh = q.shape
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     o = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device)
+    # shared memory: the larger route's, fa_wgmma<128> (fa_hopper.cuh
+    # Layout<128>::kBytes, 164,920 B; fa_fwd<float, 128> takes 115,712 B)
+    # repro: vmem-bound 41230
     with torch.cuda.device(q.device):
         rc = _entry(kind)(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
                           v.data_ptr(), o.data_ptr(), b, s, k.shape[1], h,

@@ -1,3 +1,4 @@
+# repro: quarantine -- growth-seed attention kernel; unrelated to the TestU01 battery kernels
 """Public attention wrapper (port of
 ``repro/kernels/flash_attention/ops.py::mha``): the ``(B, S, H, dh)``
 layout with GQA head grouping.

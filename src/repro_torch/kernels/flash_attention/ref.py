@@ -1,3 +1,4 @@
+# repro: quarantine -- growth-seed attention kernel; unrelated to the TestU01 battery kernels
 """Plain PyTorch version of the flash-attention kernel (port of
 ``repro/kernels/flash_attention/ref.py``), and of the kernel's call in
 the ``(B, S, H, dh)`` GQA layout."""

@@ -173,7 +173,7 @@ def _scratch(device: torch.device, stream: int, words: int) -> torch.Tensor:
     buf = _SCRATCH.get(key)
     if buf is None or buf.numel() < words:
         size = max(words, 2 * buf.numel() if buf is not None else 0)
-        buf = _SCRATCH[key] = torch.zeros(size, dtype=torch.int32,
+        buf = _SCRATCH[key] = torch.zeros(size, dtype=torch.int32,  # repro: noqa RPA103 -- keyed by stream
                                           device=device)
     return buf
 
@@ -185,6 +185,8 @@ def _launch(idx: torch.Tensor, nbins: int, pl: Plan) -> torch.Tensor:
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
     scratch = (_scratch(dev, stream, pl.scratch_words).data_ptr()
                if pl.scratch_words else None)
+    # shared memory: plan's largest is the copies route's COPY_MAX_BINS words
+    # repro: vmem-bound repro_torch.kernels.histogram.kernel.COPY_MAX_BINS
     args = (idx.data_ptr(), idx.shape[0], nbins, ROUTES[pl.route], pl.lanes,
             pl.warp_copies, pl.slice_log2, pl.cluster, pl.blocks,
             pl.smem_bytes, scratch, out.data_ptr(), stream)
@@ -211,8 +213,8 @@ def histogram(idx: torch.Tensor, nbins: int) -> torch.Tensor:
     if not 0 < nbins < 1 << 31:
         raise ValueError(f"nbins={nbins} out of range")
     out = _launch(idx, nbins, plan(n, nbins, *device_limits(idx.device.index)))
-    histogram.launches += 1
-    histogram.calls[(n, nbins)] += 1
+    histogram.launches += 1  # repro: noqa RPA103 -- launch counter (chip_smoke.py)
+    histogram.calls[(n, nbins)] += 1  # repro: noqa RPA103 -- launch counter (chip_smoke.py)
     return out
 
 

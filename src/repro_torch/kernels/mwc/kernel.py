@@ -142,6 +142,9 @@ def _launch(x0: int, c0: int, n: int, pl: Plan, device: torch.device,
     ``index`` (``device.index`` None: the current device); uncounted."""
     out = torch.empty(n, dtype=torch.int64, device=device)
     fn, _, table = _entry()
+    # shared memory: threads * (chunk | 1) words (mwc.cu's launch), at most
+    # MAX_THREADS * (CHUNK + 1) = 128 * 65
+    # repro: vmem-bound 8320
     args = (x0, c0, n, pl.chunk.bit_length() - 1, pl.threads, pl.blocks,
             table, out.data_ptr(), torch._C._cuda_getCurrentRawStream(index))
     rc = fn(*args) if device.index is None else build.call_on(device, fn,
@@ -167,8 +170,8 @@ def mwc_words(x0: int, c0: int, n: int, device) -> torch.Tensor:
     index = (torch.cuda.current_device() if device.index is None
              else device.index)
     out = _launch(x0, c0, n, plan(n, sm_count(index)), device, index)
-    mwc_words.launches += 1
-    mwc_words.calls[n] += 1
+    mwc_words.launches += 1  # repro: noqa RPA103 -- launch counter (chip_smoke.py)
+    mwc_words.calls[n] += 1  # repro: noqa RPA103 -- launch counter (chip_smoke.py)
     return out
 
 

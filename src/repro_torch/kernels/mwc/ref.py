@@ -18,4 +18,4 @@ def mwc_ref(x0: int, c0: int, n: int, device=None) -> torch.Tensor:
         t = MWC_A * x + c
         x, c = t & MASK32, t >> 32
         out[i] = x
-    return torch.tensor(out, dtype=torch.int64).to(resolve_device(device))
+    return torch.tensor(out, dtype=torch.int64).to(resolve_device(device))  # repro: noqa RPA102 -- CPU plain loop

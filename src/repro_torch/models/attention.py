@@ -1,3 +1,4 @@
+# repro: quarantine -- growth-seed LM serving path (qwen2-1.5b); nothing in the battery system imports it
 """GQA attention: projections, full-sequence causal attention and
 one-token decode (port of the GQA half of ``repro/models/attention.py``).
 

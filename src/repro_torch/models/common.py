@@ -1,3 +1,4 @@
+# repro: quarantine -- growth-seed LM serving path (qwen2-1.5b); nothing in the battery system imports it
 """Shared model primitives: norms, activations, rope (port of
 ``repro/models/common.py``)."""
 from __future__ import annotations

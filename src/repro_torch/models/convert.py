@@ -1,3 +1,4 @@
+# repro: quarantine -- growth-seed LM serving path (qwen2-1.5b); nothing in the battery system imports it
 """Carry the reference's parameters across: ``params_from_jax``.
 
 The JAX package's ``init_params`` draws from ``jax.random``, which no

@@ -1,3 +1,4 @@
+# repro: quarantine -- growth-seed LM serving path (qwen2-1.5b); nothing in the battery system imports it
 """Model assembly, dense family (port of ``repro/models/lm.py``).
 
 Public surface:

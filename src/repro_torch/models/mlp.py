@@ -1,3 +1,4 @@
+# repro: quarantine -- growth-seed LM serving path (qwen2-1.5b); nothing in the battery system imports it
 """Dense gated MLP, SwiGLU (port of ``repro/models/mlp.py``). The matrix products are ``torch.matmul``: the
 reference leaves them to XLA outside any kernel."""
 from __future__ import annotations

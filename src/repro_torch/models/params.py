@@ -1,3 +1,4 @@
+# repro: quarantine -- growth-seed LM serving path (qwen2-1.5b); nothing in the battery system imports it
 """Parameter-spec machinery (port of ``repro/models/params.py``).
 
 Every module declares its parameters once as a spec tree (nested dicts)

@@ -213,7 +213,7 @@ def _xs_jump(s0: int, idx: torch.Tensor, nbits: int) -> torch.Tensor:
     """``M^idx s0`` per lane: GF(2) square-and-multiply over the
     precomputed matrix powers; each matvec XOR-reduces the columns the
     state selects (an unrolled reduce: torch has no XOR reduction)."""
-    pows = torch.as_tensor(_xs_jump_cols(), device=idx.device)
+    pows = torch.as_tensor(_xs_jump_cols(), device=idx.device)  # repro: noqa RPA102 -- 32 KiB table a call (PERF.md §7)
     bitpos = torch.arange(64, dtype=torch.int64, device=idx.device)
     s = torch.full_like(idx, s0)
     for k in range(nbits):
@@ -296,7 +296,7 @@ def mwc_block(seed, stream, n, *, device=None):
 # sequential twins (host loops over Python ints)
 
 def _host_words(words, device) -> torch.Tensor:
-    return torch.tensor(words, dtype=torch.int64).to(resolve_device(device))
+    return torch.tensor(words, dtype=torch.int64).to(resolve_device(device))  # repro: noqa RPA102 -- sequential twins
 
 
 def _scan_words(step, state, n, out_fn, device):

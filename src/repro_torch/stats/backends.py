@@ -51,7 +51,7 @@ def register(kname: str, backend: str, fn: Callable) -> None:
     if backend not in ("reference", "accelerated"):
         raise KeyError(f"backend must be reference|accelerated, "
                        f"got {backend!r}")
-    _REGISTRY.setdefault(kname, {})[backend] = fn
+    _REGISTRY.setdefault(kname, {})[backend] = fn  # repro: noqa RPA103 -- registration at import
 
 
 # compute capability the kernels are built for (kernels/build.py: sm_90a)

@@ -70,6 +70,6 @@ def ks_pvalue(sorted_u: torch.Tensor) -> torch.Tensor:
 
 def chi2_from_counts(counts: torch.Tensor, expected) -> torch.Tensor:
     """Pearson statistic with TestU01-style clamping of tiny bins."""
-    expected = torch.clamp(torch.as_tensor(expected, device=counts.device),
+    expected = torch.clamp(torch.as_tensor(expected, device=counts.device),  # repro: noqa RPA102 -- numpy expected (PERF.md §7)
                            min=1e-9)
     return torch.sum(torch.square(counts - expected) / expected)

@@ -77,7 +77,7 @@ def gap_stat(counts, beta, maxlen):
     n_hits = torch.sum(counts)
     probs = np.array([beta * (1 - beta) ** i for i in range(maxlen)]
                      + [(1 - beta) ** maxlen], np.float32)
-    stat = chi2_from_counts(counts, n_hits * torch.as_tensor(
+    stat = chi2_from_counts(counts, n_hits * torch.as_tensor(  # repro: noqa RPA102 -- model probs (PERF.md §7)
         probs, device=counts.device))
     return stat, chi2_sf(stat, maxlen)
 
@@ -160,7 +160,7 @@ def coupon(bits, n=65536, d=8, maxlen=30):
     succ = torch.cat([torch.clamp(end + 1, max=n),
                       torch.full((1,), n, dtype=torch.int64, device=dev)])
     on_chain = torch.zeros(n + 1, dtype=torch.int32, device=dev)
-    on_chain[0] = 1
+    on_chain[0] = 1  # repro: noqa RPA102 -- a host int copied per call (PERF.md §7)
     jump = succ
     for _ in range(max(n, 1).bit_length()):    # S |= jump(S), jump = jump^2
         on_chain = on_chain.scatter_reduce(0, jump, on_chain, reduce="amax")
@@ -171,7 +171,7 @@ def coupon(bits, n=65536, d=8, maxlen=30):
     hist = histogram_ref(binp, maxlen + 1)[:maxlen]
     probs = _coupon_probs(d, maxlen)
     n_seg = torch.sum(hist)
-    stat = chi2_from_counts(hist, n_seg * torch.as_tensor(
+    stat = chi2_from_counts(hist, n_seg * torch.as_tensor(  # repro: noqa RPA102 -- model probs (PERF.md §7)
         np.maximum(probs, 1e-12), device=dev))
     return stat, chi2_sf(stat, maxlen - 1)
 
