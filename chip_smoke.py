@@ -27,7 +27,12 @@ Phases, one line each (details in ``reports/chip_smoke/chip_smoke.json``):
    the reference suite's tolerances (2e-5 float32, 2e-2 bfloat16); the
    tensor-core route also row by row against its own arithmetic emulated
    in float32 (``tests/test_torch_flash.py``: P in bfloat16), each row
-   within WGMMA_ROW_RTOL of its largest value;
+   within WGMMA_ROW_RTOL of its largest value; the sliding window (gemma2's
+   local layers) on both routes against ``mha_ref(window=...)`` at
+   windows 4096, 128, 300 and 1 (FA_WINDOW_PARITY), and a window of at
+   least S bitwise the causal result on both routes; gemma2's prefill
+   attention at its 8192-token prompt (GEMMA2_FA) timed with its window
+   and without, beside the bounds of the pairs each mask keeps;
    CUDA-event medians of each kernel, its plain version and the library
    yardstick (``torch.bincount``, ``scaled_dot_product_attention``; timed
    here, used nowhere in the port); at the bfloat16 tensor-core shapes
@@ -131,16 +136,25 @@ Phases, one line each (details in ``reports/chip_smoke/chip_smoke.json``):
    that RPA101/RPA102 reports; the analyzer's shared-memory budget equal
    to the card's per-block opt-in limit, and each kernel's static shared
    bytes equal to ptxas's.
+13. (run right after phase 7) gemma2-27b on the card: at full width and
+   depth with bfloat16 parameters (54.45 GB; float32 would not fit), a
+   1 x 8192-token prompt with 16 greedy tokens and 4 x 512 with 32; 46
+   flash-attention launches per prefill, all on ``wgmma``, 23 with the
+   window; one profiled prefill and decode step; then 4 layers at full
+   width in float32, a 1 x 5000-token prompt greedy through the kernel
+   and the plain version (logits within SERVE_LOGITS_ATOL, tokens
+   equal), and the 8192 prompt in bfloat16 at that depth (the first
+   differing step reported).
 
 Phase 3 times every kernel at the shapes the main paths gave it (BigCrush
 for the battery kernels and mwc, phase 6 for flash attention).
 
 Any failure raises, and the script exits non-zero without a result line;
 the traceback and ``nvidia-smi -q`` go to ``reports/chip_smoke/chip_smoke_failure.txt``.
-The kernels' JSON adds each kernel's launches in phases 8, 9, 10 and 11
-(``launches_captured_bigcrush``, ``launches_campaign``,
-``launches_elastic_faults``, ``launches_serve``) beside those of the
-main path. The last three lines are the kernels' JSON, the card, and
+The kernels' JSON adds each kernel's launches in phases 8, 9, 10, 11
+and 13 (``launches_captured_bigcrush``, ``launches_campaign``,
+``launches_elastic_faults``, ``launches_serve``, ``launches_gemma2``)
+beside those of the main path. The last three lines are the kernels' JSON, the card, and
 ``{"ok": true, "device": {...}}``.
 """
 import contextlib
@@ -267,6 +281,24 @@ FA_PARITY = [(2, 256, 4, 2, 64, 0.0, "float32"),
              (1, 384, 2, 2, 128, 50.0, "bfloat16"),
              (1, 128, 8, 1, 64, 0.0, "bfloat16")]
 FA_ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# the sliding window on both routes (bfloat16 dh 64/128 on wgmma, float32
+# on simt), each shape at every window of FA_WINDOWS and at S (a window
+# of at least S: bitwise the causal result): 4096 is gemma2's, 128 one
+# tile, 300 not a multiple of 128 (two edge tiles masked), 1 the diagonal
+FA_WINDOW_PARITY = [(1, 5120, 4, 2, 128, 50.0, "bfloat16"),
+                    (2, 1024, 4, 2, 64, 0.0, "bfloat16"),
+                    (1, 5120, 4, 2, 128, 50.0, "float32"),
+                    (2, 1024, 4, 2, 64, 0.0, "float32")]
+FA_WINDOWS = [4096, 128, 300, 1]
+# gemma2-27b's prefill attention at phase 13's 8192-token prompt, timed
+# with its window and without (its local and global layers)
+GEMMA2_FA = (1, 8192, 32, 16, 128, 50.0, "bfloat16")
+GEMMA2_WINDOW = 4096
+# phase 13: (batch, prompt length, generated tokens) at full depth, then
+# the float32 parity run at reduced depth (a ragged prompt past the window)
+GEMMA2_SERVE = [(1, 8192, 16), (4, 512, 32)]
+GEMMA2_PARITY_LAYERS = 4
+GEMMA2_PARITY = (1, 5000, 8)
 # (batch, prompt length, generated tokens) of the serve phase
 SERVE = [(4, 512, 64), (2, 2048, 16)]
 # float32 serve parity, kernel vs plain: last-position logits are O(1)
@@ -520,12 +552,12 @@ def print_battery(name, c):
           f"({c['bound_by']})", flush=True)
 
 
-def simt_attention(q, k, v, scale, softcap):
+def simt_attention(q, k, v, scale, softcap, window=0):
     """The CUDA-core flash-attention route on the same inputs, launched
     uncounted (``kernel._call``, not through the launcher): the yardstick
     of the tensor-core route at its own shapes. S a multiple of 128."""
     from repro_torch.kernels.flash_attention import kernel as fk
-    rc, o = fk._call("simt", q, k, v, scale, softcap)
+    rc, o = fk._call("simt", q, k, v, scale, softcap, window)
     check(rc == 0, f"flash_attention simt route: CUDA error {rc}")
     return o
 
@@ -625,6 +657,134 @@ def print_fa(c):
           f"({c['bound_by']}){simt}", flush=True)
 
 
+def attended_pairs(s, window):
+    """(query, key) pairs the mask keeps over one head's S queries:
+    causal (window 0) or a sliding window."""
+    if not window or window >= s:
+        return s * (s + 1) // 2
+    return window * (window + 1) // 2 + (s - window) * window
+
+
+def fa_window_case(b, s, h, kh, dh, cap, dtype, window, seed=0,
+                   timed=False):
+    """Check the flash-attention kernel with a sliding window (0: causal)
+    against its plain version (``mha_ref(window=...)``) within FA_ATOL at
+    q (B, S, H, dh), k/v (B, S, K, dh); where the tensor-core route takes
+    it, also row by row against its arithmetic emulated in float32, and
+    the CUDA-core route on the same inputs (uncounted). A window of at
+    least S must give the causal result bit for bit, on the launcher's
+    route and on the CUDA-core one. ``timed`` adds per-call and device
+    times of the kernel, the plain version's time (3 runs) and the bound
+    from the pairs the mask keeps; the library column is None when the
+    softcap is on (no single PyTorch call computes softcapped attention),
+    and ``scaled_dot_product_attention`` with the window as a boolean mask
+    and no softcap is timed beside it as a different function."""
+    import torch
+    import torch.nn.functional as F
+    from test_torch_flash import WGMMA_ROW_RTOL, row_rel_err, wgmma_emulation
+    from repro_torch.kernels.flash_attention.kernel import route
+    from repro_torch.kernels.flash_attention.ops import mha
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn((b, s, n, dh), generator=g, device="cuda").to(dt)
+               for n in (h, kh, kh))
+    scale = dh ** -0.5
+    what = (f"flash_attention B{b} S{s} H{h} K{kh} dh{dh} cap{cap} {dtype} "
+            f"window {window}")
+    got = mha(q, k, v, scale=scale, softcap=cap, window=window)
+    want = mha_ref(q, k, v, scale=scale, softcap=cap, window=window)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+          f"{what}: shape or non-finite output")
+    err = float((got.float() - want.float()).abs().max())
+    check(err <= FA_ATOL[dtype], f"{what}: max |kernel - plain| {err} > "
+                                 f"{FA_ATOL[dtype]}")
+    kind = route(dt, dh)
+    rec = {"b": b, "s": s, "h": h, "kh": kh, "dh": dh, "softcap": cap,
+           "dtype": dtype, "window": window, "route": kind,
+           "max_abs_err": err, "atol": FA_ATOL[dtype]}
+    if kind == "wgmma":
+        same = wgmma_emulation(q, k, v, scale=scale, softcap=cap,
+                               window=window)
+        rec["row_rel_err"] = row_rel_err(got, same)
+        check(rec["row_rel_err"] <= WGMMA_ROW_RTOL, f"{what}: row-relative "
+              f"error against its arithmetic {rec['row_rel_err']} > "
+              f"{WGMMA_ROW_RTOL}")
+        del same
+        old = simt_attention(q, k, v, scale, cap, window)
+        torch.cuda.synchronize()
+        rec["simt_err"] = float((old.float() - want.float()).abs().max())
+        check(rec["simt_err"] <= FA_ATOL[dtype], f"{what}: simt route max "
+              f"|kernel - plain| {rec['simt_err']}")
+        if window >= s:
+            check(torch.equal(old, simt_attention(q, k, v, scale, cap)),
+                  f"{what}: simt route, a window of at least S is not the "
+                  f"causal result bit for bit")
+        del old
+    del want
+    if window >= s:
+        check(torch.equal(got, mha(q, k, v, scale=scale, softcap=cap)),
+              f"{what}: a window of at least S is not the causal result "
+              f"bit for bit")
+        rec["bitwise_causal"] = True
+    if not timed:
+        return rec
+
+    def kernel():
+        return mha(q, k, v, scale=scale, softcap=cap, window=window)
+    pairs = attended_pairs(s, window)
+    esize = torch.finfo(dt).bits // 8
+    peak = SCALAR_OPS_PER_S if dt == torch.float32 else TENSOR_BF16_FLOPS
+    bound, by = bound_ms(esize * dh * b * (2 * s * h + 2 * s * kh),
+                         4 * dh * b * h * pairs, peak)
+    mask = (torch.ones((s, s), dtype=torch.bool, device="cuda").tril()
+            .triu(1 - window) if 0 < window < s else None)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def sdpa():
+        if mask is None:
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True, scale=scale, enable_gqa=True)
+        return F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, scale=scale, enable_gqa=True)
+    rec.update({
+        "pairs": pairs, "bound_ms": bound, "bound_by": by,
+        "peak_ops_per_s": peak, "ms": median_ms(kernel),
+        "device_ms": device_ms(kernel),
+        "plain_ms": median_ms(lambda: mha_ref(q, k, v, scale=scale,
+                                              softcap=cap, window=window),
+                              reps=3, warmup=1),
+        "sdpa_no_softcap_ms": median_ms(sdpa),
+        "sdpa_no_softcap_device_ms": device_ms(sdpa)})
+    rec["library_ms"] = None if cap else rec["sdpa_no_softcap_ms"]
+    return rec
+
+
+def print_fa_window(c):
+    """One ``[kernels]`` line of a windowed (or, timed, causal) case."""
+    extra = ""
+    if "row_rel_err" in c:
+        extra += (f", row err vs its arithmetic {c['row_rel_err']:.3g}, "
+                  f"simt route err {c['simt_err']:.3g}")
+    if c.get("bitwise_causal"):
+        extra += ", bitwise the causal result"
+    if "ms" in c:
+        extra += (f" | kernel {c['ms']:.4f} ms (device {c['device_ms']:.4f})"
+                  f", plain {c['plain_ms']:.4f} ms, bound "
+                  f"{c['bound_ms']:.4f} ms ({c['bound_by']}, {c['pairs']} "
+                  f"pairs a head), library "
+                  + ("none (softcap)" if c["library_ms"] is None
+                     else f"{c['library_ms']:.4f} ms")
+                  + f"; sdpa without softcap (a different function) "
+                  f"{c['sdpa_no_softcap_ms']:.4f} ms (device "
+                  f"{c['sdpa_no_softcap_device_ms']:.4f})")
+    print(f"[kernels] flash_attention B{c['b']} S{c['s']} H{c['h']} "
+          f"K{c['kh']} dh{c['dh']} cap{c['softcap']} {c['dtype']} window "
+          f"{c['window']} ({c['route']}): max err {c['max_abs_err']:.3g} <= "
+          f"{c['atol']}{extra}", flush=True)
+
+
 def greedy(params, prompts, cfg, gen_len):
     """One batch of greedy requests: prefill, then argmax -> decode_step.
     Returns the prefill's last-position logits, the (B, gen_len) tokens
@@ -707,6 +867,8 @@ def zero_counts():
     for fn in _kernel_fns().values():
         fn.launches = 0
         fn.calls.clear()
+        if hasattr(fn, "windowed"):
+            fn.windowed = 0
 
 
 def launch_counts():
@@ -1775,6 +1937,203 @@ def campaign_phase(cap_path, card):
             "launches": launches}
 
 
+def fa_launches(flash):
+    """The flash-attention launches since the counts were zeroed: in all,
+    by route, and those given a window."""
+    routes = {}
+    for key, c in flash.calls.items():
+        routes[key[-1]] = routes.get(key[-1], 0) + c
+    return {"launches": flash.launches, "routes": routes,
+            "windowed": flash.windowed}
+
+
+def gemma2_phase(card):
+    """Phase 13: gemma2-27b on the card, weights from seed 0.
+
+    (a) Full width and depth (46 layers, 27.23e9 parameters) with the
+    parameters in bfloat16 (54.45 GB; the reference's float32 master copy
+    would be 108.9 GB and does not fit on one 80 GB card), compute
+    bfloat16: GEMMA2_SERVE's requests, each after a warm-up at its shape;
+    46 flash-attention launches per prefill, every one on the ``wgmma``
+    route, 23 of them (the local layers) with gemma2's window; prefill
+    ms, decode ms per token, tokens/s, peak memory; one profiled prefill
+    of the longest prompt and one decode step. Launch counts are zeroed
+    just before each measured request and read just after.
+    (b) Full width, GEMMA2_PARITY_LAYERS layers, float32 parameters and
+    compute: the GEMMA2_PARITY prompt (ragged, longer than the window: the
+    CUDA-core route's window) greedy through the kernel and with the
+    model's attention rebound to the plain version: last-position logits
+    within SERVE_LOGITS_ATOL and every greedy token equal. Then (a)'s
+    longest prompt in bfloat16 compute at that depth, kernel against
+    plain: the first differing step is reported, not checked.
+    Each model is freed before the next."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.decode import decode_step, prefill
+    from repro_torch.models.lm import init_params
+    from repro_torch.models.params import leaves
+    flash = _kernel_fns()["flash_attention"]
+    base = get_config("gemma2-27b")
+    cfg = dataclasses.replace(base, param_dtype="bfloat16")
+    n_local = cfg.n_layers // len(cfg.attn_pattern)
+    out = {"launches": {name: 0 for name in _kernel_fns()}, "runs": []}
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["param_bytes"] = sum(p.numel() * p.element_size() for p in
+                             leaves(params))
+    print(f"[gemma2] gemma2-27b at full width and depth ({cfg.n_layers}L "
+          f"d{cfg.d_model} {cfg.n_heads}H/{cfg.n_kv_heads}kv dh"
+          f"{cfg.head_dim_} ff{cfg.d_ff} vocab {cfg.vocab_size}, pattern "
+          f"{cfg.attn_pattern}, window {cfg.local_window}, softcaps "
+          f"{cfg.attn_softcap}/{cfg.final_softcap}): {cfg.n_params()} "
+          f"bfloat16 parameters ({out['param_bytes']} B; float32 would "
+          f"take {4 * cfg.n_params()} B, more than the card holds) from "
+          f"seed 0 on cuda in {out['init_s']:.2f}s, compute "
+          f"{cfg.compute_dtype} | {card}", flush=True)
+    prompts_by_len = {}
+    for i, (batch, plen, gen) in enumerate(GEMMA2_SERVE):
+        prompts = prompts_for(cfg, batch, plen, seed=100 + i)
+        prompts_by_len[plen] = prompts
+        greedy(params, prompts, cfg, 2)          # warm-up at this shape
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        first, toks, t_pre, t_dec = greedy(params, prompts, cfg, gen)
+        launches = launch_counts()
+        fa = fa_launches(flash)
+        check(fa == {"launches": cfg.n_layers,
+                     "routes": {"wgmma": cfg.n_layers}, "windowed": n_local},
+              f"gemma2 {batch}x{plen}: flash-attention launches {fa}, want "
+              f"{cfg.n_layers} on wgmma, {n_local} windowed")
+        for name, c in launches.items():
+            out["launches"][name] += c
+        run = {"batch": batch, "prompt_len": plen, "gen_len": gen,
+               "prefill_ms": t_pre * 1e3,
+               "decode_ms_per_step": t_dec * 1e3 / (gen - 1),
+               "tokens_per_s": batch * gen / (t_pre + t_dec),
+               "prefill_tokens_per_s": batch * plen / t_pre,
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "flash": fa, "calls": {str(k): c for k, c in
+                                      flash.calls.items()},
+               "tokens": toks.tolist()}
+        out["runs"].append(run)
+        print(f"[gemma2] {batch} x {plen}-token prompts, {gen} greedy "
+              f"tokens each: prefill {run['prefill_ms']:.2f} ms, decode "
+              f"{run['decode_ms_per_step']:.3f} ms/token (one per request "
+              f"per step), {run['tokens_per_s']:.2f} generated tokens/s, "
+              f"max_memory_allocated {run['max_memory_allocated']} B, "
+              f"flash_attention {fa['launches']} launches by route "
+              f"{fa['routes']}, {fa['windowed']} windowed", flush=True)
+
+    # where the time goes: one profiled prefill of the longest prompt and
+    # one decode step after it; idle share against the unprofiled times
+    run = max(out["runs"], key=lambda r: r["prompt_len"] * r["batch"])
+    prompts = prompts_by_len[run["prompt_len"]]
+    state = {}
+
+    def prof_prefill():
+        state["out"] = prefill(params, prompts, cfg,
+                               max_seq=run["prompt_len"] + 2)
+    profiles = {"prefill": (device_busy(prof_prefill), run["prefill_ms"])}
+    logits, cache = state.pop("out")
+    profiles["decode step"] = (device_busy(lambda: decode_step(
+        params, cache, logits.argmax(-1, keepdim=True), cfg)),
+        run["decode_ms_per_step"])
+    del logits, cache
+    out["profile"] = {}
+    for what, (rec, wall) in profiles.items():
+        rec["wall_ms"] = wall
+        rec["idle_share"] = (max(0.0, 1 - rec["busy_ms"] / wall)
+                             if rec["busy_ms"] else None)
+        top = ", ".join(f"{k} x{c} {t:.2f} ms" for k, c, t in rec["top"][:3])
+        idle = ("not measured" if rec["idle_share"] is None
+                else f"{rec['idle_share']:.1%}")
+        print(f"[gemma2] profile of one {what} at {run['batch']} x "
+              f"{run['prompt_len']}: device busy {rec['busy_ms']:.2f} ms of "
+              f"{wall:.2f} ms (idle share {idle}), {rec['kernels']} "
+              f"kernels, flash attention {rec['flash_ms']:.2f} ms; top: "
+              f"{top}", flush=True)
+        out["profile"][what] = {k: rec[k] for k in rec if k != "by_name"}
+    del params, state
+    torch.cuda.empty_cache()
+
+    # (b) parity at full width and reduced depth, float32
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: float32 parity needs full float32")
+    cfg32 = dataclasses.replace(base, n_layers=GEMMA2_PARITY_LAYERS,
+                                param_dtype="float32",
+                                compute_dtype="float32")
+    n_local = cfg32.n_layers // len(cfg32.attn_pattern)
+    params = init_params(cfg32, seed=0)
+    batch, plen, gen = GEMMA2_PARITY
+    prompts = prompts_for(cfg32, batch, plen, seed=200)
+    zero_counts()
+    k_first, k_toks, k_pre, _ = greedy(params, prompts, cfg32, gen)
+    fa = fa_launches(flash)
+    check(fa == {"launches": cfg32.n_layers,
+                 "routes": {"simt": cfg32.n_layers}, "windowed": n_local},
+          f"gemma2 float32 parity: flash-attention launches {fa}")
+    kernel_mha = attn_mod.mha
+    attn_mod.mha = mha_ref
+    try:
+        zero_counts()
+        p_first, p_toks, p_pre, _ = greedy(params, prompts, cfg32, gen)
+        check(launch_counts()["flash_attention"] == 0,
+              "the plain gemma2 run launched the kernel")
+    finally:
+        attn_mod.mha = kernel_mha
+    logit_err = float((k_first - p_first).abs().max())
+    check(logit_err <= SERVE_LOGITS_ATOL,
+          f"gemma2 float32: last-position logits kernel vs plain differ by "
+          f"{logit_err} > {SERVE_LOGITS_ATOL}")
+    check(torch.equal(k_toks, p_toks),
+          "gemma2 float32: greedy tokens differ between kernel and plain")
+    # bfloat16 compute at this depth on (a)'s longest prompt
+    cfg16 = dataclasses.replace(cfg32, compute_dtype="bfloat16")
+    prompts = prompts_for(cfg16, run["batch"], run["prompt_len"], seed=100)
+    zero_counts()
+    b_first, b_toks, _, _ = greedy(params, prompts, cfg16, run["gen_len"])
+    fa16 = fa_launches(flash)
+    check(fa16 == {"launches": cfg16.n_layers,
+                   "routes": {"wgmma": cfg16.n_layers}, "windowed": n_local},
+          f"gemma2 bfloat16 parity: flash-attention launches {fa16}")
+    attn_mod.mha = mha_ref
+    try:
+        pb_first, pb_toks, _, _ = greedy(params, prompts, cfg16,
+                                         run["gen_len"])
+    finally:
+        attn_mod.mha = kernel_mha
+    differ = (b_toks != pb_toks).any(dim=0).nonzero()
+    bf16_first_diff = int(differ[0]) if len(differ) else None
+    bf16_err = float((b_first - pb_first).abs().max())
+    out["parity"] = {
+        "layers": cfg32.n_layers, "prompt": [batch, plen], "gen": gen,
+        "float32_logits_max_abs_err": logit_err, "atol": SERVE_LOGITS_ATOL,
+        "float32_tokens_equal": True, "float32_flash": fa,
+        "float32_prefill_ms": {"kernel": k_pre * 1e3, "plain": p_pre * 1e3},
+        "bfloat16_prompt": [run["batch"], run["prompt_len"]],
+        "bfloat16_flash": fa16,
+        "bfloat16_logits_max_abs_err": bf16_err,
+        "bfloat16_first_differing_step": bf16_first_diff}
+    print(f"[gemma2 parity] {cfg32.n_layers} layers at full width, float32 "
+          f"parameters and compute, {batch} x {plen}-token prompt, {gen} "
+          f"greedy tokens: equal with the kernel ({fa['launches']} launches "
+          f"on {fa['routes']}, {fa['windowed']} windowed) and the plain "
+          f"version; last-position logits max |diff| {logit_err:.3g} <= "
+          f"{SERVE_LOGITS_ATOL} | bfloat16 compute, {run['batch']} x "
+          f"{run['prompt_len']}: logits max |diff| {bf16_err:.3g}, tokens "
+          + ("all equal" if bf16_first_diff is None else
+             f"first differ at step {bf16_first_diff} (reported, not "
+             f"checked)"), flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -1859,8 +2218,14 @@ def main():
           f"{empty['ms']:.4f} ms (device {empty['device_ms']:.4f})",
           flush=True)
     fa_parity = [fa_case(*shape) for shape in FA_PARITY]
+    fa_window = [fa_window_case(*shape, w) for shape in FA_WINDOW_PARITY
+                 for w in sorted(set(FA_WINDOWS + [shape[1]]))]
+    gemma2_fa = [fa_window_case(*GEMMA2_FA, w, seed=1, timed=True)
+                 for w in (GEMMA2_WINDOW, 0)]
     details["parity"] = {"histogram": hist_parity, "gf2_rank": rank_parity,
-                         "mwc": mwc_parity, "flash_attention": fa_parity}
+                         "mwc": mwc_parity,
+                         "flash_attention": fa_parity + fa_window}
+    details["gemma2_attention"] = gemma2_fa
     for c in hist_parity:
         print_battery("histogram", c)
     for c in rank_parity:
@@ -1869,6 +2234,16 @@ def main():
         print_battery("mwc", c)
     for c in fa_parity:
         print_fa(c)
+    for c in fa_window + gemma2_fa:
+        print_fa_window(c)
+    local, glob = gemma2_fa
+    details["gemma2_attention_ratio"] = {
+        "device": local["device_ms"] / glob["device_ms"],
+        "work": local["pairs"] / glob["pairs"]}
+    print(f"[kernels] gemma2 prefill attention, window {GEMMA2_WINDOW} "
+          f"against global: device time ratio "
+          f"{details['gemma2_attention_ratio']['device']:.3f}, work ratio "
+          f"{details['gemma2_attention_ratio']['work']:.3f}", flush=True)
 
     # 4. main path, accelerated
     from test_torch_reference import ATOL, RTOL, p_tolerance
@@ -2223,6 +2598,11 @@ def main():
              f"checked)"), flush=True)
     del params
 
+    # 13. gemma2-27b on the card (after qwen2's parameters are freed)
+    t0 = time.perf_counter()
+    details["gemma2"] = gemma2_phase(card)
+    t_gemma2 = time.perf_counter() - t0
+
     # 8-9. captured bitstreams and a generator-fleet campaign, at full size
     tmp = tempfile.mkdtemp(prefix="chip_smoke_capture_")
     try:
@@ -2252,11 +2632,13 @@ def main():
     t5 = time.perf_counter()
     details["phase_s"] = {"captured": t1 - t0, "campaign": t2 - t1,
                           "elastic_faults": t3 - t2, "screening": t4 - t3,
-                          "analysis": t5 - t4}
+                          "analysis": t5 - t4, "gemma2": t_gemma2}
     print(f"[time] phase 8 (captured) {t1 - t0:.1f}s, phase 9 (campaign) "
           f"{t2 - t1:.1f}s, phase 10 (elastic, faults) {t3 - t2:.1f}s, "
           f"phase 11 (screening) {t4 - t3:.1f}s, phase 12 (analysis) "
-          f"{t5 - t4:.1f}s, {t0 - t_start:.1f}s before them", flush=True)
+          f"{t5 - t4:.1f}s, phase 13 (gemma2, run after phase 7) "
+          f"{t_gemma2:.1f}s, {t0 - t_start - t_gemma2:.1f}s before phase 8 "
+          f"besides it", flush=True)
 
     # the kernels at the shapes their main paths gave them
     main_calls = calls["bigcrush"]
@@ -2310,8 +2692,11 @@ def main():
             "launches_elastic_faults":
                 details["elastic_faults"]["launches"][name],
             "launches_serve": details["screening"]["launches"][name],
+            "launches_gemma2": details["gemma2"]["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in
-                               cases + details["parity"][name]),
+                               cases + details["parity"][name]
+                               + (details["gemma2_attention"]
+                                  if name == "flash_attention" else [])),
             "ms": total("ms"), "device_ms": total("device_ms"),
             "plain_ms": total("plain_ms"),
             "bound_ms": total("bound_ms"),

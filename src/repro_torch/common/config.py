@@ -1,19 +1,20 @@
-# repro: quarantine -- growth-seed LM serving path (qwen2-1.5b); nothing in the battery system imports it
+# repro: quarantine -- growth-seed LM serving path (qwen2-1.5b, gemma2-27b); nothing in the battery system imports it
 """Model configuration of the LM serving path (from the reference's
 ``repro/common/config.py``: ``pad_to`` and the fields of ``ModelConfig``
 that the port reads).
 
 The reference's other fields describe families, modalities and training
-knobs the port does not run yet (gemma2's local windows, softcaps, query
-scale and post-norms, MoE, MLA, SSM, xLSTM, whisper, remat, gradient
-accumulation); each comes back in the slice that first reads it. Until
-then a configuration that needs one cannot be written here, so none is
-silently ignored.
+knobs the port does not run yet (MoE, MLA, SSM, xLSTM, whisper, qk-norm,
+the ungated MLP, remat, gradient accumulation); each comes back in the
+slice that first reads it. Until then a configuration that needs one
+cannot be written here, so none is silently ignored. ``gated_mlp`` is
+among them: every ported architecture has the reference's default, a
+gated MLP.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 def pad_to(x: int, multiple: int) -> int:
@@ -32,12 +33,20 @@ class ModelConfig:
     vocab_size: int
 
     head_dim: Optional[int] = None     # default d_model // n_heads
-    act: str = "silu"                  # silu (SwiGLU; the only one ported)
+    act: str = "silu"                  # silu (SwiGLU) | gelu (GeGLU, tanh form)
     qkv_bias: bool = False
     rope: bool = True
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
     norm_eps: float = 1e-6
+
+    # gemma2
+    attn_pattern: Tuple[str, ...] = ("global",)   # e.g. ("local","global")
+    local_window: int = 4096
+    attn_softcap: float = 0.0          # 0 disables
+    final_softcap: float = 0.0
+    query_scale: Optional[float] = None  # override 1/sqrt(head_dim)
+    post_block_norm: bool = False      # gemma2 post-norms
 
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"

@@ -2,9 +2,9 @@
 """Architecture registry: ``get_config(arch_id)`` / ``get_reduced(arch_id)``
 (port of ``repro/configs``).
 
-Only qwen2-1.5b is ported. The reference's other architectures raise a
-``KeyError`` that says so; ROADMAP.md (queue 1, item 17) lists them in
-the order they are to be ported.
+qwen2-1.5b and gemma2-27b are ported. The reference's other
+architectures raise a ``KeyError`` that says so; ROADMAP.md (queue 1,
+item 4) lists them in the order they are to be ported.
 """
 from __future__ import annotations
 
@@ -12,10 +12,11 @@ import importlib
 
 _MODULES = {
     "qwen2-1.5b": "qwen2_1_5b",
+    "gemma2-27b": "gemma2_27b",
 }
 NOT_PORTED = ("granite-moe-1b-a400m", "deepseek-v2-236b", "glm4-9b",
-              "gemma2-27b", "nemotron-4-340b", "chameleon-34b",
-              "whisper-small", "xlstm-1.3b", "zamba2-1.2b")
+              "nemotron-4-340b", "chameleon-34b", "whisper-small",
+              "xlstm-1.3b", "zamba2-1.2b")
 
 ARCH_IDS = tuple(_MODULES)
 
@@ -23,7 +24,7 @@ ARCH_IDS = tuple(_MODULES)
 def _mod(arch_id: str):
     if arch_id in NOT_PORTED:
         raise KeyError(f"arch {arch_id!r} is not ported yet (see ROADMAP.md, "
-                       f"queue 1 item 17); ported: {sorted(_MODULES)}")
+                       f"queue 1 item 4); ported: {sorted(_MODULES)}")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; ported: {sorted(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")

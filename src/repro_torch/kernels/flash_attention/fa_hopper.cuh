@@ -11,7 +11,12 @@
 //
 // with an online softmax (running max m, sum l and accumulator acc, all
 // float32), the causal mask qpos >= kpos, softcap tanh(s / cap) * cap when
-// cap != 0, and the finalize acc / max(l, 1e-37) cast to bfloat16.
+// cap != 0 (before the mask), and the finalize acc / max(l, 1e-37) cast to
+// bfloat16. With window w > 0 the mask also drops keys with
+// qpos - kpos >= w (the reference's local attention, which the reference
+// computes with XLA, not with the Pallas kernel); a window of at least S
+// is the causal mask bit for bit. gemma2-27b's 23 local layers run here
+// at w = 4096.
 //
 // What bounds it on this card (PERF.md section 6): at the serving shape
 // B2 S2048 H12 K2 dh128 the causal work is 25.8 GFLOP, 0.026 ms at the
@@ -50,6 +55,21 @@
 //   a row (shuffles 1, 2); the row sum kept per thread and reduced once at
 //   the end. Only the diagonal tile is masked; tiles past it are skipped
 //   (key 0 is unmasked for every row, so skipping only reorders rounding).
+// * Window: the kv loop starts at kt_lo = max(0, q0 - w + 1) / 128, the
+//   tile of the block's first query's first key; the tiles before it are
+//   masked for every row and skipped. Besides the diagonal tile, the
+//   tiles that hold a key some row of the block drops (k0 <= q0 + 127 - w)
+//   are masked: at most two, one when w % 128 is 0 or 1 (4096). A later
+//   row of the block whose keys all lie past the first walked tile sees
+//   only NEG there: its m stays NEG and its P are exp2(0) = 1, until its
+//   first kept key, where the rescale exp2(NEG - m) is exactly 0 and
+//   clears l and O (its own key, qpos - kpos = 0, is always kept). The
+//   ring's stage and the barriers' phase count iterations from kt_lo, not
+//   tiles from 0: the first walked tile takes stage 0 and phase 0, as the
+//   barriers were initialized, whatever its index. No shared memory
+//   changes. The heaviest-first order stays: under a window every q tile
+//   from w on walks the same w / 128 + 1 tiles (or one more), and the
+//   earlier ones fewer, so the reversed order is still non-increasing.
 // * O += P V: P is rounded to bf16 in registers and fed as wgmma's
 //   register A operand (the m64nNk16 accumulator layout of S is the A
 //   fragment layout, 16 columns per step); V is B from shared memory,
@@ -102,6 +122,7 @@ struct Params {
   float cap_inv;         // scale / softcap (softcap != 0)
   float cap_log2;        // softcap * log2(e)
   int softcap;           // 0: no softcap
+  int window;            // 0: causal; w > 0: keep 0 <= qpos - kpos < w
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -260,7 +281,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // column 8*(i>>2) + 2*(lane&3) + (i&1).
 template <int DH>
 __device__ __forceinline__ void consume(uint32_t base, const Params& p,
-                                        int b, int h, int q0, int n_kt) {
+                                        int b, int h, int q0, int kt_lo,
+                                        int n_kt) {
   using L = Layout<DH>;
   constexpr int kChunks = DH / kBoxCols;
   const int wg = threadIdx.x >> 7;
@@ -277,9 +299,10 @@ __device__ __forceinline__ void consume(uint32_t base, const Params& p,
   float m0 = kNeg, m1 = kNeg, l0 = 0.f, l1 = 0.f;
 
   bar_wait(bar, 0);
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int stage = kt & 1;
-    const uint32_t parity = (kt >> 1) & 1;
+  for (int kt = kt_lo; kt < n_kt; ++kt) {
+    const int it = kt - kt_lo;           // ring iteration: stage, phase
+    const int stage = it & 1;
+    const uint32_t parity = (it >> 1) & 1;
     const uint32_t k_tile = base + L::kK + stage * L::kTile;
     const uint32_t v_tile = base + L::kV + stage * L::kTile;
 
@@ -300,7 +323,8 @@ __device__ __forceinline__ void consume(uint32_t base, const Params& p,
     wgmma_wait_all();
     fence_regs(s);
 
-    // scores -> log2 domain, softcap, the diagonal tile's mask
+    // scores -> log2 domain, softcap, the mask of the diagonal tile and
+    // of the window's edge tiles
     const int k0 = kt * kBK;
     if (p.softcap) {
 #pragma unroll
@@ -309,12 +333,14 @@ __device__ __forceinline__ void consume(uint32_t base, const Params& p,
 #pragma unroll
       for (int i = 0; i < 64; ++i) s[i] *= p.scale_log2;
     }
-    if (k0 + kBK - 1 > q0) {
+    if (k0 + kBK - 1 > q0 ||
+        (p.window > 0 && q0 + kBQ - 1 - k0 >= p.window)) {
 #pragma unroll
       for (int i = 0; i < 64; ++i) {
         const int qpos = q0 + row + 8 * ((i >> 1) & 1);
         const int kpos = k0 + 8 * (i >> 2) + col + (i & 1);
-        if (qpos < kpos) s[i] = kNeg;
+        if (qpos < kpos || (p.window > 0 && qpos - kpos >= p.window))
+          s[i] = kNeg;
       }
     }
     float mx0 = kNeg, mx1 = kNeg;
@@ -408,6 +434,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int b = bh / p.H, h = bh - b * p.H;
   const int kh = h / (p.H / p.KH);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest first
+  // kv tiles from the window's first key (0 when causal) to the diagonal
+  const int kt_lo =
+      p.window > 0 && q0 - p.window + 1 > 0 ? (q0 - p.window + 1) / kBK : 0;
   const int n_kt = min(p.T / kBK, (q0 + kBQ - 1) / kBK + 1);
 
   if (threadIdx.x == 0) {
@@ -428,9 +457,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int c = 0; c < kChunks; ++c)
         tma_load(base + L::kQ + c * kBoxBytes, &tq, bar, c * kBoxCols, h, q0,
                  b);
-      for (int kt = 0; kt < n_kt; ++kt) {
-        const int s = kt & 1;
-        bar_wait(bar + 40 + 8 * s, ((kt >> 1) & 1) ^ 1);
+      for (int kt = kt_lo; kt < n_kt; ++kt) {
+        const int it = kt - kt_lo;         // ring iteration: stage, phase
+        const int s = it & 1;
+        bar_wait(bar + 40 + 8 * s, ((it >> 1) & 1) ^ 1);
         bar_expect_tx(bar + 8 + 8 * s, L::kTile);
         for (int c = 0; c < kChunks; ++c)
           tma_load(base + L::kK + s * L::kTile + c * kBoxBytes, &tk,
@@ -443,7 +473,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-    consume<DH>(base, p, b, h, q0, n_kt);
+    consume<DH>(base, p, b, h, q0, kt_lo, n_kt);
   }
 }
 
@@ -496,7 +526,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int S, int T, int H, int KH, long long qsb,
                    long long qss, long long qsh, long long ksb, long long kss,
                    long long ksh, long long vsb, long long vss, long long vsh,
-                   float scale, float softcap, cudaStream_t stream) {
+                   float scale, float softcap, int window,
+                   cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!tensor_map(&tq, q, B, S, H, DH, qsb, qss, qsh) ||
       !tensor_map(&tk, k, B, T, KH, DH, ksb, kss, ksh) ||
@@ -508,7 +539,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   Params p{static_cast<__nv_bfloat16*>(o), S, T, H, KH, scale * kLog2e,
            softcap != 0.f ? scale / softcap : 0.f, softcap * kLog2e,
-           softcap != 0.f};
+           softcap != 0.f, window};
   dim3 grid(B * H, S / kBQ);
   fa_wgmma<DH><<<grid, kThreads, smem, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();

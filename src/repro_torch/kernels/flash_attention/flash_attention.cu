@@ -14,8 +14,14 @@
 //
 // with an online softmax over kv tiles: a running max m, a running sum l
 // and an accumulator acc, all float32; the causal mask is qpos >= kpos
-// with the mask value NEG; softcap is tanh(s / cap) * cap when cap != 0;
-// the row is finalized as acc / max(l, 1e-37) and cast to q's type.
+// with the mask value NEG; softcap is tanh(s / cap) * cap when cap != 0,
+// applied before the mask; the row is finalized as acc / max(l, 1e-37)
+// and cast to q's type.
+//
+// Sliding window (window w > 0; the reference's local attention, which
+// it computes with XLA, models/attention.py _mask_bias, and not with the
+// Pallas kernel): a key is kept when 0 <= qpos - kpos < w. A window of at
+// least S is the causal mask, bit for bit (no tile or mask changes).
 //
 // The TPU kernel walks a sequential grid (B*H, S/128, T/128) and carries
 // (m, l, acc) in VMEM scratch across the innermost kv dimension. Hopper's
@@ -24,6 +30,14 @@
 // mask the loop stops at the diagonal: the tiles after it are wholly
 // masked, and every query row has an unmasked key (key 0) in the first
 // tile, so skipping them changes the result only by rounding order.
+// Under a window the loop starts at the tile of the block's first
+// query's first key, max(0, q0 - w + 1) / BK: the tiles before it are
+// wholly masked for every row of the block. A row whose keys all lie
+// past the first walked tile (a later row of the block) then sees only
+// NEG there: its m stays NEG and its p are exp(0) = 1, until its first
+// unmasked key, where alpha = exp(NEG - m_new) is exactly 0 and clears
+// l and acc. Each row's own key (qpos - kpos = 0) is always kept, so
+// that key comes.
 //
 // GQA: the block reads kv head h / (H / KH) directly, where the TPU
 // wrapper materialized jnp.repeat. q, k and v come in (B, S, H, dh)
@@ -89,6 +103,7 @@ struct Args {
   int S, T, H, KH, dh;
   long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;
   float scale, softcap;
+  int window;  // 0: causal; w > 0: keep 0 <= qpos - kpos < w
 };
 
 // Row stride of a shared tile: DH elements plus one 32-bit word.
@@ -148,9 +163,13 @@ __global__ void __launch_bounds__(kThreads) fa_fwd(Args a) {
 
   load_tile<T, DH>(sQ, qp, q0, a.qss, a.dh, kBQ);
 
-  // kv tiles up to the causal diagonal
+  // kv tiles from the window's first key (0 when causal) up to the
+  // causal diagonal
+  const int kt_lo = a.window > 0 && q0 - a.window + 1 > 0
+                        ? (q0 - a.window + 1) / kBK
+                        : 0;
   const int n_kt = min(a.T / kBK, (q0 + kBQ - 1) / kBK + 1);
-  for (int kt = 0; kt < n_kt; ++kt) {
+  for (int kt = kt_lo; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's sK, sV and sP are consumed
     load_tile<T, DH>(sK, kp, k0, a.kss, a.dh, kBK);
@@ -183,7 +202,9 @@ __global__ void __launch_bounds__(kThreads) fa_fwd(Args a) {
       for (int j = 0; j < kCols; ++j) {
         float x = s[i][j] * a.scale;
         if (a.softcap != 0.f) x = tanhf(x / a.softcap) * a.softcap;
-        if (qpos < k0 + tx + 16 * j) x = kNeg;
+        const int kpos = k0 + tx + 16 * j;
+        if (qpos < kpos || (a.window > 0 && qpos - kpos >= a.window))
+          x = kNeg;
         s[i][j] = x;
         mx = fmaxf(mx, x);
       }
@@ -257,20 +278,23 @@ cudaError_t launch_dh(const Args& a, int B, cudaStream_t s) {
 // q: (B, S, H, dh), k and v: (B, T, KH, dh), each with the given strides
 // (in elements) for its first three dims and a contiguous last dim;
 // o: contiguous (B, S, H, dh). dtype: 0 float32, 1 bfloat16. The mask is
-// causal (qpos >= kpos): the only form a caller of the port needs.
-// S and T are multiples of 128, H a multiple of KH, 0 < dh <= 128.
+// causal (qpos >= kpos), and with window > 0 also qpos - kpos < window
+// (the forms a caller of the port needs; window 0 is causal alone).
+// S and T are multiples of 128, H a multiple of KH, 0 < dh <= 128,
+// window >= 0.
 // Returns the CUDA error code: 0 on success, cudaErrorInvalidValue on
 // arguments it does not take. Launches on `stream`.
 extern "C" int repro_flash_attention(
     int dtype, const void* q, const void* k, const void* v, void* o, int B,
     int S, int T, int H, int KH, int dh, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
-    long long vss, long long vsh, float scale, float softcap, void* stream) {
+    long long vss, long long vsh, float scale, float softcap, int window,
+    void* stream) {
   if (B <= 0 || S % 128 || T % 128 || S <= 0 || T <= 0 || KH <= 0 ||
-      H % KH || dh <= 0 || dh > 128)
+      H % KH || dh <= 0 || dh > 128 || window < 0)
     return cudaErrorInvalidValue;
   Args a{q, k, v, o, S, T, H, KH, dh, qsb, qss, qsh, ksb, kss, ksh,
-         vsb, vss, vsh, scale, softcap};
+         vsb, vss, vsh, scale, softcap, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return launch_dh<float>(a, B, s);
@@ -288,9 +312,10 @@ extern "C" int repro_flash_attention_wgmma(
     int dtype, const void* q, const void* k, const void* v, void* o, int B,
     int S, int T, int H, int KH, int dh, long long qsb, long long qss,
     long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
-    long long vss, long long vsh, float scale, float softcap, void* stream) {
+    long long vss, long long vsh, float scale, float softcap, int window,
+    void* stream) {
   if (dtype != 1 || B <= 0 || S % 128 || T % 128 || S <= 0 || T <= 0 ||
-      KH <= 0 || H % KH || (dh != 64 && dh != 128))
+      KH <= 0 || H % KH || (dh != 64 && dh != 128) || window < 0)
     return cudaErrorInvalidValue;
   for (const void* ptr : {q, k, v})
     if (reinterpret_cast<uintptr_t>(ptr) % 16) return cudaErrorInvalidValue;
@@ -300,8 +325,8 @@ extern "C" int repro_flash_attention_wgmma(
   return dh == 64
              ? fa_hopper::launch<64>(q, k, v, o, B, S, T, H, KH, qsb, qss, qsh,
                                      ksb, kss, ksh, vsb, vss, vsh, scale,
-                                     softcap, s)
+                                     softcap, window, s)
              : fa_hopper::launch<128>(q, k, v, o, B, S, T, H, KH, qsb, qss,
                                       qsh, ksb, kss, ksh, vsb, vss, vsh, scale,
-                                      softcap, s);
+                                      softcap, window, s);
 }

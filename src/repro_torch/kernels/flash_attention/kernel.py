@@ -11,9 +11,11 @@ Two routes, chosen by dtype and head dim before launch (``route``):
 ``"wgmma"``, the tensor-core kernel of ``fa_hopper.cuh``, for bfloat16
 at head dims 64 and 128; ``"simt"``, the CUDA-core kernel, for float32
 (tensor cores would round it to TF32) and for bfloat16 at other head
-dims. ``flash_attention.launches`` counts launches and
+dims. ``flash_attention.launches`` counts launches,
 ``flash_attention.calls`` counts them by
-``(B, S, T, H, K, dh, dtype, route)``; nothing else touches either.
+``(B, S, T, H, K, dh, dtype, route)`` and ``flash_attention.windowed``
+counts those given a sliding window (``window`` > 0); nothing else
+touches them.
 """
 from __future__ import annotations
 
@@ -46,13 +48,14 @@ def _entry(kind: str):
     fn = getattr(build.load("flash_attention"), _SYMBOLS[kind])
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
                    + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
 def _call(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-          scale: float, softcap: float):
+          scale: float, softcap: float, window: int = 0):
     """Launch route ``kind`` on inputs that ``flash_attention`` has
     checked, on q's current stream, uncounted -> (CUDA error code, o)."""
     b, s, h, dh = q.shape
@@ -65,18 +68,24 @@ def _call(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         rc = _entry(kind)(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
                           v.data_ptr(), o.data_ptr(), b, s, k.shape[1], h,
                           k.shape[2], dh, *strides, float(scale),
-                          float(softcap),
+                          float(softcap), int(window),
                           torch.cuda.current_stream(q.device).cuda_stream)
     return rc, o
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    scale: float, softcap: float = 0.0) -> torch.Tensor:
+                    scale: float, softcap: float = 0.0,
+                    window: int = 0) -> torch.Tensor:
     """Causal attention. q: (B, S, H, dh), k/v: (B, T, K, dh) CUDA
     tensors, all float32 or all bfloat16, H % K == 0, S and T multiples
     of BLOCK, dh <= 128, each with a contiguous last dim -> o: contiguous
-    (B, S, H, dh) in q's dtype. On the ``wgmma`` route the tensors must
+    (B, S, H, dh) in q's dtype. ``window`` 0 is the causal mask; w > 0
+    keeps only the keys with ``0 <= qpos - kpos < w`` (a window of at
+    least S is the causal mask), and needs S <= T. On the ``wgmma`` route the tensors must
     also start on 16 bytes and have strides of whole 16 bytes (TMA)."""
+    if not 0 <= window < 2 ** 31:
+        raise ValueError(f"window {window} is not in [0, 2^31) (0 is "
+                         f"causal)")
     strides = []
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in DTYPES or t.dtype != q.dtype:
@@ -95,6 +104,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not fit (B,S,H,dh) / "
                          f"(B,T,K,dh)")
+    if window and s > t_len:
+        raise ValueError(f"a window needs S <= T, got S={s}, T={t_len}: "
+                         f"a query past T + window - 1 has no key")
     if kh == 0 or h % kh:
         raise ValueError(f"H={h} is not a multiple of K={kh}")
     if s % BLOCK or t_len % BLOCK or s == 0 or t_len == 0:
@@ -113,14 +125,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"the tensor-core route needs q, k, v on a 16-byte "
                          f"boundary with strides of whole 16 bytes, got "
                          f"strides {q.stride()}, {k.stride()}, {v.stride()}")
-    rc, o = _call(kind, q, k, v, scale, softcap)
+    rc, o = _call(kind, q, k, v, scale, softcap, window)
     if rc:
         raise RuntimeError(f"flash_attention kernel ({kind}) launch failed: "
                            f"CUDA error {rc}")
     flash_attention.launches += 1
     flash_attention.calls[(b, s, t_len, h, kh, dh, str(q.dtype), kind)] += 1
+    if window:
+        flash_attention.windowed += 1
     return o
 
 
 flash_attention.launches = 0
 flash_attention.calls = collections.Counter()
+flash_attention.windowed = 0

@@ -7,8 +7,9 @@ The reference leaves padding to its callers and asserts S, T % 128 == 0;
 here ``mha`` pads S and T up to a multiple of 128 itself and slices the
 result, so prompts of any length work. Under the causal mask that is
 exact: padded keys sit after every real query, and padded query rows are
-dropped. A CUDA tensor goes to the kernel, a CPU tensor to the plain
-version.
+dropped. A sliding window keeps the causal bound (it only adds a lower
+one), so padded keys stay masked for every real query under it too. A
+CUDA tensor goes to the kernel, a CPU tensor to the plain version.
 """
 from __future__ import annotations
 
@@ -23,21 +24,28 @@ def _pad_seq(x, n):
     return x if x.shape[1] == n else F.pad(x, (0, 0, 0, 0, 0, n - x.shape[1]))
 
 
-def mha(q, k, v, *, scale, softcap=0.0):
+def mha(q, k, v, *, scale, softcap=0.0, window=0):
     """Causal attention. q: (B, S, H, dh); k/v: (B, T, K, dh) with
-    H % K == 0 -> (B, S, H, dh) in q's dtype. The reference's non-causal
-    form has no caller in the port; neither the kernel nor this wrapper
-    takes it."""
+    H % K == 0 -> (B, S, H, dh) in q's dtype. ``window`` 0 is the causal
+    mask; w > 0 keeps the keys with ``0 <= qpos - kpos < w`` (the
+    reference's local attention). The reference's non-causal form has no
+    caller in the port; neither the kernel nor this wrapper takes it."""
+    if window < 0:
+        raise ValueError(f"window {window} is negative (0 is causal)")
     s, t = q.shape[1], k.shape[1]
     sp, tp = -(-s // BLOCK) * BLOCK, -(-t // BLOCK) * BLOCK
+    if window and s > t:
+        raise ValueError(f"a window needs S <= T, got S={s}, T={t}: a "
+                         f"query past T + window - 1 has no key")
     if tp != t and s > t:
         raise ValueError(f"T={t} is not a multiple of {BLOCK}, and padded "
                          f"keys would be attended (S={s} > T)")
     q, k, v = _pad_seq(q, sp), _pad_seq(k, tp), _pad_seq(v, tp)
     if q.is_cuda:
-        o = flash_attention(q, k, v, scale=scale, softcap=softcap)
+        o = flash_attention(q, k, v, scale=scale, softcap=softcap,
+                            window=window)
     elif q.device.type == "cpu":
-        o = mha_ref(q, k, v, scale=scale, softcap=softcap)
+        o = mha_ref(q, k, v, scale=scale, softcap=softcap, window=window)
     else:
         raise ValueError(f"no flash-attention kernel for device {q.device}")
     return o[:, :s]

@@ -7,21 +7,26 @@ import torch
 NEG = -2.3819763e38
 
 
-def attention_ref(q, k, v, *, scale, softcap=0.0):
+def attention_ref(q, k, v, *, scale, softcap=0.0, window=0):
     """Causal attention, the kernel's plain version. q/k/v: (BH, S, dh)
-    -> (BH, S, dh) in q's dtype, computed in fp32."""
+    -> (BH, S, dh) in q's dtype, computed in fp32. ``window`` 0 is the
+    causal mask (``qpos >= kpos``); ``window`` w > 0 is a sliding window
+    (``0 <= qpos - kpos < w``), the reference's ``kind="local"`` mask.
+    The softcap comes before the mask, as in the reference."""
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
     if softcap:
         s = torch.tanh(s / softcap) * softcap
     qn, kn = s.shape[1], s.shape[2]
     mask = torch.ones((qn, kn), dtype=torch.bool, device=s.device).tril()
+    if window:
+        mask = mask.triu(1 - window)
     s = torch.where(mask[None], s, torch.tensor(NEG, device=s.device))
     w = torch.exp(s - s.amax(dim=-1, keepdim=True))
     w = w / w.sum(dim=-1, keepdim=True)
     return torch.einsum("bqk,bkd->bqd", w, v.float()).to(q.dtype)
 
 
-def mha_ref(q, k, v, *, scale, softcap=0.0):
+def mha_ref(q, k, v, *, scale, softcap=0.0, window=0):
     """The kernel's function in its own layout: q (B, S, H, dh), k/v
     (B, T, K, dh) -> (B, S, H, dh). Repeats the kv heads and folds the
     heads into the batch, as the reference wrapper does, then calls
@@ -34,5 +39,5 @@ def mha_ref(q, k, v, *, scale, softcap=0.0):
     qf = q.transpose(1, 2).reshape(b * h, s, dh)
     kf = k.transpose(1, 2).reshape(b * h, k.shape[1], dh)
     vf = v.transpose(1, 2).reshape(b * h, v.shape[1], dh)
-    o = attention_ref(qf, kf, vf, scale=scale, softcap=softcap)
+    o = attention_ref(qf, kf, vf, scale=scale, softcap=softcap, window=window)
     return o.reshape(b, h, s, dh).transpose(1, 2)

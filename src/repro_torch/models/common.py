@@ -1,5 +1,5 @@
-# repro: quarantine -- growth-seed LM serving path (qwen2-1.5b); nothing in the battery system imports it
-"""Shared model primitives: norms, activations, rope (port of
+# repro: quarantine -- growth-seed LM serving path (qwen2-1.5b, gemma2-27b); nothing in the battery system imports it
+"""Shared model primitives: norms, activations, softcap, rope (port of
 ``repro/models/common.py``)."""
 from __future__ import annotations
 
@@ -34,13 +34,24 @@ def apply_norm(p, x, cfg):
 # activations
 
 def act_fn(name: str):
-    """The MLP's activation: SiLU (SwiGLU) only; the reference's GeGLU,
-    plain GELU and squared ReLU serve families not ported yet."""
-    if name != "silu":
-        raise NotImplementedError(
-            f"activation {name!r} is not ported yet: only silu is (see "
-            f"ROADMAP.md, queue 1 item 17)")
-    return F.silu
+    """The gated MLP's activation: SiLU (SwiGLU) or GELU in its tanh form
+    (GeGLU; the reference's ``jax.nn.gelu(approximate=True)``). The
+    reference's plain GELU and squared ReLU serve families not ported
+    yet."""
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    raise NotImplementedError(
+        f"activation {name!r} is not ported yet: only silu and gelu are "
+        f"(see ROADMAP.md, queue 1 item 4)")
+
+
+def softcap(x, cap: float):
+    """``tanh(x / cap) * cap``; ``cap`` 0 leaves ``x`` as it is."""
+    if not cap:
+        return x
+    return torch.tanh(x / cap) * cap
 
 
 # ---------------------------------------------------------------------------

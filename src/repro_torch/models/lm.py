@@ -1,4 +1,4 @@
-# repro: quarantine -- growth-seed LM serving path (qwen2-1.5b); nothing in the battery system imports it
+# repro: quarantine -- growth-seed LM serving path (qwen2-1.5b, gemma2-27b); nothing in the battery system imports it
 """Model assembly, dense family (port of ``repro/models/lm.py``).
 
 Public surface:
@@ -9,8 +9,15 @@ Public surface:
   count_params(cfg)                         -> int (shape-only)
 
 Weights carry a leading unit dim (the reference's scan-over-layers
-layout); the layer scan is a Python loop over it. Other families raise
-``NotImplementedError`` (ROADMAP.md, queue 1 item 17).
+layout); the layer scan is a Python loop over it. A unit holds one block
+per kind of ``cfg.attn_pattern``: one ``blk`` (global) for a
+one-kind pattern, as qwen2's, and ``local`` and ``global`` blocks for
+gemma2's ``("local", "global")``, so ``n_layers / len(pattern)`` units.
+gemma2 (``arch_id`` starting with ``gemma2``) also scales the embedding
+by ``sqrt(d_model)``, cast to the compute dtype first as the reference
+does, adds post-norms on each block's attention and MLP outputs
+(``post_block_norm``) and softcaps the final logits. Other families
+raise ``NotImplementedError`` (ROADMAP.md, queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -20,7 +27,7 @@ import torch
 
 from repro_torch.common.device import resolve_device
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.common import act_fn, apply_norm, norm_spec
+from repro_torch.models.common import act_fn, apply_norm, norm_spec, softcap
 from repro_torch.models.mlp import mlp, spec_mlp
 from repro_torch.models.params import (P, count_spec_params, init_from_spec,
                                        stack_spec, tree_map)
@@ -30,17 +37,36 @@ def _check_ported(cfg):
     if cfg.family != "dense":
         raise NotImplementedError(
             f"model family {cfg.family!r} ({cfg.arch_id}) is not ported yet: "
-            f"only the dense family is (see ROADMAP.md, queue 1 item 17)")
+            f"only the dense family is (see ROADMAP.md, queue 1 item 4)")
     act_fn(cfg.act)
 
 
 def _spec_attn_block(cfg):
-    return {
+    spec = {
         "pre_attn": norm_spec(cfg.d_model),
         "attn": attn_mod.spec_attention(cfg),
         "pre_mlp": norm_spec(cfg.d_model),
         "mlp": spec_mlp(cfg),
     }
+    if cfg.post_block_norm:
+        spec["post_attn"] = norm_spec(cfg.d_model)
+        spec["post_mlp"] = norm_spec(cfg.d_model)
+    return spec
+
+
+def _unit_structure(cfg):
+    """(n_units, [(key, kind), ...]) for the loop over units: each unit's
+    blocks in order, by their key in the unit's parameters and cache
+    (``blk`` for a one-kind pattern, the kind itself otherwise) and their
+    attention kind (a one-kind pattern runs global, as in the reference)."""
+    pat = cfg.attn_pattern
+    if cfg.n_layers % len(pat):
+        raise ValueError(f"n_layers {cfg.n_layers} is not a multiple of the "
+                         f"attention pattern {pat}")
+    n_units = cfg.n_layers // len(pat)
+    if len(pat) > 1:
+        return n_units, [(kind, kind) for kind in pat]
+    return n_units, [("blk", "global")]
 
 
 def model_spec(cfg) -> Dict[str, Any]:
@@ -52,7 +78,9 @@ def model_spec(cfg) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         spec["lm_head"] = P((d, cfg.padded_vocab), ("embed", "vocab"))
-    spec["units"] = stack_spec({"blk": _spec_attn_block(cfg)}, cfg.n_layers)
+    n_units, blocks = _unit_structure(cfg)
+    spec["units"] = stack_spec({key: _spec_attn_block(cfg)
+                                for key, _ in blocks}, n_units)
     return spec
 
 
@@ -77,28 +105,41 @@ def count_params(cfg) -> int:
 
 
 def unit(stacked, i):
-    """Layer ``i``'s slice of a stacked tree (views, no copy)."""
+    """Unit ``i``'s slice of a stacked tree (views, no copy)."""
     return tree_map(lambda a: a[i], stacked)
 
 
 def embed(params, tokens, cfg):
-    return params["embed"][tokens].to(_cdtype(cfg))
+    cdt = _cdtype(cfg)
+    x = params["embed"][tokens].to(cdt)
+    if cfg.arch_id.startswith("gemma2"):
+        x = x * torch.tensor(cfg.d_model ** 0.5, dtype=cdt)
+    return x
 
 
-def apply_attn_block(p, x, cfg):
-    """One pre-norm block on the full sequence; returns (x, (k, v))."""
+def apply_attn_block(p, x, cfg, kind="global"):
+    """One pre-norm block on the full sequence, with post-norms where the
+    block has them; returns (x, (k, v))."""
     h, kv = attn_mod.attention(p["attn"], apply_norm(p["pre_attn"], x, cfg),
-                               cfg, return_kv=True)
+                               cfg, kind=kind, return_kv=True)
+    if "post_attn" in p:
+        h = apply_norm(p["post_attn"], h, cfg)
     x = x + h
-    return x + mlp(p["mlp"], apply_norm(p["pre_mlp"], x, cfg), cfg), kv
+    h = mlp(p["mlp"], apply_norm(p["pre_mlp"], x, cfg), cfg)
+    if "post_mlp" in p:
+        h = apply_norm(p["post_mlp"], h, cfg)
+    return x + h, kv
 
 
 def forward_hidden(params, tokens, cfg):
     """tokens: (B, S) int -> (final-normed hidden (B, S, D), aux loss)."""
     _check_ported(cfg)
+    n_units, blocks = _unit_structure(cfg)
     x = embed(params, tokens, cfg)
-    for i in range(cfg.n_layers):
-        x, _ = apply_attn_block(unit(params["units"], i)["blk"], x, cfg)
+    for i in range(n_units):
+        up = unit(params["units"], i)
+        for key, kind in blocks:
+            x, _ = apply_attn_block(up[key], x, cfg, kind)
     x = apply_norm(params["final_norm"], x, cfg)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
@@ -112,19 +153,22 @@ def forward(params, tokens, cfg):
 
 def _lm_logits(params, x, cfg):
     if cfg.tie_embeddings:
-        return x @ params["embed"].to(x.dtype).T
-    return x @ params["lm_head"].to(x.dtype)
+        logits = x @ params["embed"].to(x.dtype).T
+    else:
+        logits = x @ params["lm_head"].to(x.dtype)
+    return softcap(logits, cfg.final_softcap)
 
 
 def init_cache(cfg, batch: int, max_seq: int, dtype=None, device=None):
-    """The decode cache (zeros; prefill fills it): ``pos`` (an int) and
-    per-layer k/v of shape (n_layers, B, max_seq, K, dh) in the compute
-    dtype, on ``device`` (default ``cuda``)."""
+    """The decode cache (zeros; prefill fills it): ``pos`` (an int) and,
+    per block key of a unit, k/v of shape (n_units, B, max_seq, K, dh) in
+    the compute dtype, on ``device`` (default ``cuda``)."""
     _check_ported(cfg)
     dev = resolve_device(device)
     cdt = dtype or _cdtype(cfg)
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.head_dim_)
+    n_units, blocks = _unit_structure(cfg)
+    shape = (n_units, batch, max_seq, cfg.n_kv_heads, cfg.head_dim_)
     return {"pos": 0,
-            "units": {"blk": {"k": torch.zeros(shape, dtype=cdt, device=dev),
-                              "v": torch.zeros(shape, dtype=cdt,
-                                               device=dev)}}}
+            "units": {key: {"k": torch.zeros(shape, dtype=cdt, device=dev),
+                            "v": torch.zeros(shape, dtype=cdt, device=dev)}
+                      for key, _ in blocks}}

@@ -1,6 +1,8 @@
-# repro: quarantine -- growth-seed LM serving path (qwen2-1.5b); nothing in the battery system imports it
-"""Dense gated MLP, SwiGLU (port of ``repro/models/mlp.py``). The matrix products are ``torch.matmul``: the
-reference leaves them to XLA outside any kernel."""
+# repro: quarantine -- growth-seed LM serving path (qwen2-1.5b, gemma2-27b); nothing in the battery system imports it
+"""Dense gated MLP, SwiGLU or GeGLU by ``cfg.act`` (``models.common.act_fn``;
+port of the gated half of ``repro/models/mlp.py``). The matrix products
+are ``torch.matmul``: the reference leaves them to XLA outside any
+kernel."""
 from __future__ import annotations
 
 from repro_torch.models.common import act_fn

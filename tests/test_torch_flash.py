@@ -113,13 +113,16 @@ def test_mha_refuses_padding_it_cannot_mask():
         mha(q, k[:, :136], v[:, :136], scale=0.25)
 
 
-def wgmma_emulation(q, k, v, *, scale, softcap=0.0):
+def wgmma_emulation(q, k, v, *, scale, softcap=0.0, window=0):
     """The arithmetic of the bfloat16 tensor-core route (``fa_hopper.cuh``)
     in float32 on the CPU: 128-row q tiles and 128-key kv tiles up to the
     diagonal, scores in the log2 domain (scale or softcap folded with
     log2(e), exp2), the mask applied to the diagonal tile only, l summed
-    from float32 P, and P rounded to bfloat16 before P.V. On q's device;
-    S a multiple of 128."""
+    from float32 P, and P rounded to bfloat16 before P.V. With a sliding
+    ``window`` w > 0, the kv tiles start at the kernel's
+    ``max(0, q0 - w + 1) // 128`` and the tiles at the window's lower edge
+    (``k0 <= q0 + 127 - w``) are masked too. On q's device; S a multiple
+    of 128."""
     b, s, h, dh = q.shape
     t, kh = k.shape[1], k.shape[2]
     dev = q.device
@@ -135,12 +138,16 @@ def wgmma_emulation(q, k, v, *, scale, softcap=0.0):
         m = torch.full((b, h, 128), -2.3819763e38, device=dev)
         l = torch.zeros((b, h, 128), device=dev)
         acc = torch.zeros((b, h, 128, dh), device=dev)
-        for k0 in range(0, min(t, q0 + 128), 128):
+        lo = max(0, q0 - window + 1) // 128 * 128 if window else 0
+        for k0 in range(lo, min(t, q0 + 128), 128):
             x = qt @ kf[:, :, k0:k0 + 128].transpose(-1, -2)
             x = (torch.tanh(x * (scale / softcap)) * (softcap * log2e)
                  if softcap else x * (scale * log2e))
-            if k0 + 127 > q0:
-                masked = (q0 + pos)[:, None] < (k0 + pos)[None, :]
+            if k0 + 127 > q0 or (window and q0 + 127 - k0 >= window):
+                diff = (q0 + pos)[:, None] - (k0 + pos)[None, :]
+                masked = diff < 0
+                if window:
+                    masked = masked | (diff >= window)
                 x = x.masked_fill(masked, -2.3819763e38)
             m_new = torch.maximum(m, x.amax(-1))
             alpha = torch.exp2(m - m_new)
