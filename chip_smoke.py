@@ -145,15 +145,30 @@ Phases, one line each (details in ``reports/chip_smoke/chip_smoke.json``):
    and the plain version (logits within SERVE_LOGITS_ATOL, tokens
    equal), and the 8192 prompt in bfloat16 at that depth (the first
    differing step reported).
+14. (run right after phase 13) glm4-9b, chameleon-34b and
+   nemotron-4-340b on the card: the kernel alone at each one's prefill
+   attention shape (glm4's GQA group of 16, chameleon's 64 heads,
+   nemotron's head dim 192 on the CUDA-core route in bfloat16 and
+   float32) against its plain version, timed beside its bound and
+   ``scaled_dot_product_attention``; then each at full width in bfloat16
+   parameters, glm4 and chameleon at full depth (18.80 and 68.59 GB),
+   nemotron at 4 of its 96 layers (46.51 GB): glm4 1 x 8192 with 16
+   greedy tokens, chameleon and nemotron 1 x 4096 with 16 and 8, each 4 x
+   512 with 32 (nemotron 16); one flash-attention launch a layer a
+   prefill (``wgmma``, ``wgmma``, ``simt``); one profiled prefill and
+   decode step each; then float32 greedy parity, kernel against plain,
+   on a 1 x 1000-token prompt at 4 layers (nemotron 1). Each model is
+   freed before the next is built.
 
 Phase 3 times every kernel at the shapes the main paths gave it (BigCrush
 for the battery kernels and mwc, phase 6 for flash attention).
 
 Any failure raises, and the script exits non-zero without a result line;
 the traceback and ``nvidia-smi -q`` go to ``reports/chip_smoke/chip_smoke_failure.txt``.
-The kernels' JSON adds each kernel's launches in phases 8, 9, 10, 11
-and 13 (``launches_captured_bigcrush``, ``launches_campaign``,
-``launches_elastic_faults``, ``launches_serve``, ``launches_gemma2``)
+The kernels' JSON adds each kernel's launches in phases 8, 9, 10, 11,
+13 and 14 (``launches_captured_bigcrush``, ``launches_campaign``,
+``launches_elastic_faults``, ``launches_serve``, ``launches_gemma2``,
+``launches_dense_archs``)
 beside those of the main path. The last three lines are the kernels' JSON, the card, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -299,6 +314,27 @@ GEMMA2_WINDOW = 4096
 GEMMA2_SERVE = [(1, 8192, 16), (4, 512, 32)]
 GEMMA2_PARITY_LAYERS = 4
 GEMMA2_PARITY = (1, 5000, 8)
+# phase 14: the rest of the dense and vlm architectures at full width in
+# bfloat16 parameters: layers served (None: full depth; nemotron-4-340b's
+# 96 layers are 682 GB, so 4 of them, 46.51 GB), the flash-attention
+# route every prefill launch must take, and (batch, prompt length,
+# generated tokens) of each request
+DENSE_ARCHS = {
+    "glm4-9b": (None, "wgmma", [(1, 8192, 16), (4, 512, 32)]),
+    "chameleon-34b": (None, "wgmma", [(1, 4096, 16), (4, 512, 32)]),
+    "nemotron-4-340b": (4, "simt", [(1, 4096, 8), (4, 512, 16)]),
+}
+# then float32 parity at full width, kernel against plain: layers per arch
+# (nemotron's one layer is 51.56 GB in float32), a ragged prompt
+DENSE_PARITY_LAYERS = {"glm4-9b": 4, "chameleon-34b": 4,
+                       "nemotron-4-340b": 1}
+DENSE_PARITY = (1, 1000, 8)
+# each arch's prefill attention at its longest phase-14 prompt, the kernel
+# alone: (B, S, H, K, dh, softcap, dtype); nemotron's dh 192 in both dtypes
+DENSE_FA = [("glm4-9b", (1, 8192, 32, 2, 128, 0.0, "bfloat16")),
+            ("chameleon-34b", (1, 4096, 64, 8, 128, 0.0, "bfloat16")),
+            ("nemotron-4-340b", (1, 4096, 96, 8, 192, 0.0, "bfloat16")),
+            ("nemotron-4-340b", (1, 4096, 96, 8, 192, 0.0, "float32"))]
 # (batch, prompt length, generated tokens) of the serve phase
 SERVE = [(4, 512, 64), (2, 2048, 16)]
 # float32 serve parity, kernel vs plain: last-position logits are O(1)
@@ -1971,7 +2007,6 @@ def gemma2_phase(card):
     from repro_torch.configs import get_config
     from repro_torch.kernels.flash_attention.ref import mha_ref
     from repro_torch.models import attention as attn_mod
-    from repro_torch.models.decode import decode_step, prefill
     from repro_torch.models.lm import init_params
     from repro_torch.models.params import leaves
     flash = _kernel_fns()["flash_attention"]
@@ -2032,33 +2067,9 @@ def gemma2_phase(card):
     # where the time goes: one profiled prefill of the longest prompt and
     # one decode step after it; idle share against the unprofiled times
     run = max(out["runs"], key=lambda r: r["prompt_len"] * r["batch"])
-    prompts = prompts_by_len[run["prompt_len"]]
-    state = {}
-
-    def prof_prefill():
-        state["out"] = prefill(params, prompts, cfg,
-                               max_seq=run["prompt_len"] + 2)
-    profiles = {"prefill": (device_busy(prof_prefill), run["prefill_ms"])}
-    logits, cache = state.pop("out")
-    profiles["decode step"] = (device_busy(lambda: decode_step(
-        params, cache, logits.argmax(-1, keepdim=True), cfg)),
-        run["decode_ms_per_step"])
-    del logits, cache
-    out["profile"] = {}
-    for what, (rec, wall) in profiles.items():
-        rec["wall_ms"] = wall
-        rec["idle_share"] = (max(0.0, 1 - rec["busy_ms"] / wall)
-                             if rec["busy_ms"] else None)
-        top = ", ".join(f"{k} x{c} {t:.2f} ms" for k, c, t in rec["top"][:3])
-        idle = ("not measured" if rec["idle_share"] is None
-                else f"{rec['idle_share']:.1%}")
-        print(f"[gemma2] profile of one {what} at {run['batch']} x "
-              f"{run['prompt_len']}: device busy {rec['busy_ms']:.2f} ms of "
-              f"{wall:.2f} ms (idle share {idle}), {rec['kernels']} "
-              f"kernels, flash attention {rec['flash_ms']:.2f} ms; top: "
-              f"{top}", flush=True)
-        out["profile"][what] = {k: rec[k] for k in rec if k != "by_name"}
-    del params, state
+    out["profile"] = profile_serving("gemma2", params, cfg, run,
+                                     prompts_by_len[run["prompt_len"]])
+    del params
     torch.cuda.empty_cache()
 
     # (b) parity at full width and reduced depth, float32
@@ -2131,6 +2142,198 @@ def gemma2_phase(card):
              f"checked)"), flush=True)
     del params
     torch.cuda.empty_cache()
+    return out
+
+
+def profile_serving(tag, params, cfg, run, prompts):
+    """One profiled prefill of ``prompts`` and one decode step after it:
+    device busy ms, idle share against the run's unprofiled times, flash
+    attention's device ms, the top kernels (printed under ``tag``)."""
+    from repro_torch.models.decode import decode_step, prefill
+    state = {}
+
+    def prof_prefill():
+        state["out"] = prefill(params, prompts, cfg,
+                               max_seq=run["prompt_len"] + 2)
+    profiles = {"prefill": (device_busy(prof_prefill), run["prefill_ms"])}
+    logits, cache = state.pop("out")
+    profiles["decode step"] = (device_busy(lambda: decode_step(
+        params, cache, logits.argmax(-1, keepdim=True), cfg)),
+        run["decode_ms_per_step"])
+    del logits, cache
+    out = {}
+    for what, (rec, wall) in profiles.items():
+        rec["wall_ms"] = wall
+        rec["idle_share"] = (max(0.0, 1 - rec["busy_ms"] / wall)
+                             if rec["busy_ms"] else None)
+        top = ", ".join(f"{k} x{c} {t:.2f} ms" for k, c, t in rec["top"][:3])
+        idle = ("not measured" if rec["idle_share"] is None
+                else f"{rec['idle_share']:.1%}")
+        print(f"[{tag}] profile of one {what} at {run['batch']} x "
+              f"{run['prompt_len']}: device busy {rec['busy_ms']:.2f} ms of "
+              f"{wall:.2f} ms (idle share {idle}), {rec['kernels']} "
+              f"kernels, flash attention {rec['flash_ms']:.2f} ms; top: "
+              f"{top}", flush=True)
+        out[what] = {k: rec[k] for k in rec if k != "by_name"}
+    return out
+
+
+def dense_archs_phase(card):
+    """Phase 14: glm4-9b, chameleon-34b and nemotron-4-340b on the card,
+    weights from seed 0, each model freed before the next is built.
+
+    (a) The kernel alone at each arch's prefill attention shape
+    (DENSE_FA: glm4's GQA group of 16, chameleon's 64 heads, nemotron's
+    dh 192 on the CUDA-core route in bfloat16 and float32), through
+    ``fa_case``: against ``mha_ref`` within FA_ATOL, per-call and device
+    ms, the operations bound, ``scaled_dot_product_attention``'s time
+    (no softcap: the same function).
+    (b) Each arch at full width with bfloat16 parameters (glm4 and
+    chameleon at full depth, nemotron at 4 of 96 layers), compute
+    bfloat16: DENSE_ARCHS' requests, each after a warm-up at its shape;
+    one flash-attention launch per layer per prefill, all on the arch's
+    route, none windowed; prefill ms, decode ms per step, tokens/s, peak
+    memory; one profiled prefill of the longest prompt and one decode
+    step. Launch counts are zeroed just before each measured request and
+    read just after.
+    (c) Each arch at full width and DENSE_PARITY_LAYERS layers in float32
+    parameters and compute: the ragged DENSE_PARITY prompt greedy through
+    the kernel and with the model's attention rebound to the plain
+    version: last-position logits within SERVE_LOGITS_ATOL and every
+    greedy token equal."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.lm import init_params
+    from repro_torch.models.params import leaves
+    flash = _kernel_fns()["flash_attention"]
+    out = {"launches": {name: 0 for name in _kernel_fns()},
+           "attention": [], "archs": {}}
+    torch.cuda.empty_cache()
+    for arch, shape in DENSE_FA:
+        c = fa_case(*shape, seed=3)
+        c["arch"] = arch
+        out["attention"].append(c)
+        print_fa(c)
+        torch.cuda.empty_cache()
+
+    for arch, (layers, fa_route, requests) in DENSE_ARCHS.items():
+        base = get_config(arch)
+        cfg = dataclasses.replace(base, param_dtype="bfloat16",
+                                  n_layers=layers or base.n_layers)
+        rec = {"layers": cfg.n_layers, "full_layers": base.n_layers,
+               "reduced": (None if layers is None else
+                           f"n_layers {base.n_layers} -> {layers}: "
+                           f"{base.n_params()} bfloat16 parameters do not "
+                           f"fit on one 80 GB card"),
+               "n_params": cfg.n_params(), "runs": []}
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=0)
+        torch.cuda.synchronize()
+        rec["init_s"] = time.perf_counter() - t0
+        rec["param_bytes"] = sum(p.numel() * p.element_size()
+                                 for p in leaves(params))
+        print(f"[dense] {arch} at full width, {cfg.n_layers} of "
+              f"{base.n_layers} layers (d{cfg.d_model} {cfg.n_heads}H/"
+              f"{cfg.n_kv_heads}kv dh{cfg.head_dim_} ff{cfg.d_ff} "
+              f"{cfg.act}{'' if cfg.gated_mlp else ' ungated'}"
+              f"{' qk-norm' if cfg.qk_norm else ''} vocab {cfg.vocab_size}, "
+              f"family {cfg.family}, frontend {cfg.frontend}): "
+              f"{rec['n_params']} bfloat16 parameters ({rec['param_bytes']} "
+              f"B) from seed 0 on cuda in {rec['init_s']:.2f}s | {card}",
+              flush=True)
+        prompts_by_len = {}
+        for i, (batch, plen, gen) in enumerate(requests):
+            prompts = prompts_for(cfg, batch, plen, seed=300 + i)
+            prompts_by_len[plen] = prompts
+            greedy(params, prompts, cfg, 2)          # warm-up at this shape
+            zero_counts()
+            torch.cuda.reset_peak_memory_stats()
+            first, toks, t_pre, t_dec = greedy(params, prompts, cfg, gen)
+            launches = launch_counts()
+            fa = fa_launches(flash)
+            dhs = sorted({key[5] for key in flash.calls})
+            check(fa == {"launches": cfg.n_layers,
+                         "routes": {fa_route: cfg.n_layers}, "windowed": 0}
+                  and dhs == [cfg.head_dim_],
+                  f"{arch} {batch}x{plen}: flash-attention launches {fa} at "
+                  f"dh {dhs}, want {cfg.n_layers} on {fa_route} at dh "
+                  f"{cfg.head_dim_}")
+            for name, n in launches.items():
+                out["launches"][name] += n
+            run = {"batch": batch, "prompt_len": plen, "gen_len": gen,
+                   "prefill_ms": t_pre * 1e3,
+                   "decode_ms_per_step": t_dec * 1e3 / (gen - 1),
+                   "tokens_per_s": batch * gen / (t_pre + t_dec),
+                   "prefill_tokens_per_s": batch * plen / t_pre,
+                   "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                   "flash": fa, "calls": {str(k): n for k, n in
+                                          flash.calls.items()},
+                   "tokens": toks.tolist()}
+            rec["runs"].append(run)
+            print(f"[dense] {arch} {batch} x {plen}-token prompts, {gen} "
+                  f"greedy tokens each: prefill {run['prefill_ms']:.2f} ms, "
+                  f"decode {run['decode_ms_per_step']:.3f} ms/token (one per "
+                  f"request per step), {run['tokens_per_s']:.2f} generated "
+                  f"tokens/s, max_memory_allocated "
+                  f"{run['max_memory_allocated']} B, flash_attention "
+                  f"{fa['launches']} launches by route {fa['routes']} at dh "
+                  f"{cfg.head_dim_}", flush=True)
+        run = max(rec["runs"], key=lambda r: r["prompt_len"] * r["batch"])
+        rec["profile"] = profile_serving("dense", params, cfg, run,
+                                         prompts_by_len[run["prompt_len"]])
+        del params, prompts_by_len
+        torch.cuda.empty_cache()
+
+        # (c) float32 parity at reduced depth, kernel against plain
+        check(not torch.backends.cuda.matmul.allow_tf32,
+              "TF32 matmuls are on: float32 parity needs full float32")
+        cfg32 = dataclasses.replace(base, n_layers=DENSE_PARITY_LAYERS[arch],
+                                    param_dtype="float32",
+                                    compute_dtype="float32")
+        params = init_params(cfg32, seed=0)
+        batch, plen, gen = DENSE_PARITY
+        prompts = prompts_for(cfg32, batch, plen, seed=400)
+        zero_counts()
+        k_first, k_toks, k_pre, _ = greedy(params, prompts, cfg32, gen)
+        fa = fa_launches(flash)
+        check(fa == {"launches": cfg32.n_layers,
+                     "routes": {"simt": cfg32.n_layers}, "windowed": 0},
+              f"{arch} float32 parity: flash-attention launches {fa}")
+        kernel_mha = attn_mod.mha
+        attn_mod.mha = mha_ref
+        try:
+            zero_counts()
+            p_first, p_toks, p_pre, _ = greedy(params, prompts, cfg32, gen)
+            check(launch_counts()["flash_attention"] == 0,
+                  f"the plain {arch} run launched the kernel")
+        finally:
+            attn_mod.mha = kernel_mha
+        logit_err = float((k_first - p_first).abs().max())
+        check(logit_err <= SERVE_LOGITS_ATOL,
+              f"{arch} float32: last-position logits kernel vs plain differ "
+              f"by {logit_err} > {SERVE_LOGITS_ATOL}")
+        check(torch.equal(k_toks, p_toks),
+              f"{arch} float32: greedy tokens differ between kernel and "
+              f"plain")
+        rec["parity"] = {
+            "layers": cfg32.n_layers, "prompt": [batch, plen], "gen": gen,
+            "float32_logits_max_abs_err": logit_err,
+            "atol": SERVE_LOGITS_ATOL, "float32_tokens_equal": True,
+            "float32_flash": fa,
+            "float32_prefill_ms": {"kernel": k_pre * 1e3,
+                                   "plain": p_pre * 1e3}}
+        print(f"[dense parity] {arch}, {cfg32.n_layers} layers at full "
+              f"width, float32 parameters and compute, {batch} x {plen}-"
+              f"token prompt, {gen} greedy tokens: equal with the kernel "
+              f"({fa['launches']} launches on {fa['routes']}) and the plain "
+              f"version; last-position logits max |diff| {logit_err:.3g} <= "
+              f"{SERVE_LOGITS_ATOL}", flush=True)
+        del params
+        torch.cuda.empty_cache()
+        out["archs"][arch] = rec
     return out
 
 
@@ -2602,6 +2805,10 @@ def main():
     t0 = time.perf_counter()
     details["gemma2"] = gemma2_phase(card)
     t_gemma2 = time.perf_counter() - t0
+    # 14. glm4-9b, chameleon-34b, nemotron-4-340b (after gemma2's are freed)
+    t0 = time.perf_counter()
+    details["dense_archs"] = dense_archs_phase(card)
+    t_dense = time.perf_counter() - t0
 
     # 8-9. captured bitstreams and a generator-fleet campaign, at full size
     tmp = tempfile.mkdtemp(prefix="chip_smoke_capture_")
@@ -2632,13 +2839,15 @@ def main():
     t5 = time.perf_counter()
     details["phase_s"] = {"captured": t1 - t0, "campaign": t2 - t1,
                           "elastic_faults": t3 - t2, "screening": t4 - t3,
-                          "analysis": t5 - t4, "gemma2": t_gemma2}
+                          "analysis": t5 - t4, "gemma2": t_gemma2,
+                          "dense_archs": t_dense}
     print(f"[time] phase 8 (captured) {t1 - t0:.1f}s, phase 9 (campaign) "
           f"{t2 - t1:.1f}s, phase 10 (elastic, faults) {t3 - t2:.1f}s, "
           f"phase 11 (screening) {t4 - t3:.1f}s, phase 12 (analysis) "
           f"{t5 - t4:.1f}s, phase 13 (gemma2, run after phase 7) "
-          f"{t_gemma2:.1f}s, {t0 - t_start - t_gemma2:.1f}s before phase 8 "
-          f"besides it", flush=True)
+          f"{t_gemma2:.1f}s, phase 14 (glm4, chameleon, nemotron, after "
+          f"13) {t_dense:.1f}s, {t0 - t_start - t_gemma2 - t_dense:.1f}s "
+          f"before phase 8 besides them", flush=True)
 
     # the kernels at the shapes their main paths gave them
     main_calls = calls["bigcrush"]
@@ -2693,9 +2902,12 @@ def main():
                 details["elastic_faults"]["launches"][name],
             "launches_serve": details["screening"]["launches"][name],
             "launches_gemma2": details["gemma2"]["launches"][name],
+            "launches_dense_archs":
+                details["dense_archs"]["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in
                                cases + details["parity"][name]
                                + (details["gemma2_attention"]
+                                  + details["dense_archs"]["attention"]
                                   if name == "flash_attention" else [])),
             "ms": total("ms"), "device_ms": total("device_ms"),
             "plain_ms": total("plain_ms"),

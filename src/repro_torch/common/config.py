@@ -1,15 +1,14 @@
-# repro: quarantine -- growth-seed LM serving path (qwen2-1.5b, gemma2-27b); nothing in the battery system imports it
+# repro: quarantine -- growth-seed LM serving path (the dense and vlm families); nothing in the battery system imports it
 """Model configuration of the LM serving path (from the reference's
 ``repro/common/config.py``: ``pad_to`` and the fields of ``ModelConfig``
 that the port reads).
 
 The reference's other fields describe families, modalities and training
-knobs the port does not run yet (MoE, MLA, SSM, xLSTM, whisper, qk-norm,
-the ungated MLP, remat, gradient accumulation); each comes back in the
-slice that first reads it. Until then a configuration that needs one
-cannot be written here, so none is silently ignored. ``gated_mlp`` is
-among them: every ported architecture has the reference's default, a
-gated MLP.
+knobs the port does not run yet (MoE, MLA, SSM, xLSTM, whisper's
+encoder-decoder, remat, Adam's dtype, scan groups, gradient
+accumulation); each comes back in the slice that first reads it. Until
+then a configuration that needs one cannot be written here, so none is
+silently ignored.
 """
 from __future__ import annotations
 
@@ -24,7 +23,7 @@ def pad_to(x: int, multiple: int) -> int:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                        # dense (the only family ported)
+    family: str                        # dense | vlm (run as dense)
     n_layers: int
     d_model: int
     n_heads: int
@@ -33,8 +32,10 @@ class ModelConfig:
     vocab_size: int
 
     head_dim: Optional[int] = None     # default d_model // n_heads
-    act: str = "silu"                  # silu (SwiGLU) | gelu (GeGLU, tanh form)
+    act: str = "silu"                  # silu (SwiGLU) | gelu (GeGLU) | relu2
+    gated_mlp: bool = True
     qkv_bias: bool = False
+    qk_norm: bool = False              # Chameleon
     rope: bool = True
     rope_theta: float = 10000.0
     tie_embeddings: bool = False
@@ -47,6 +48,10 @@ class ModelConfig:
     final_softcap: float = 0.0
     query_scale: Optional[float] = None  # override 1/sqrt(head_dim)
     post_block_norm: bool = False      # gemma2 post-norms
+
+    # inputs: token ids, or (fused, vlm) ids over the fused text and image
+    # vocabulary; the reference's "frames" (whisper) is not ported
+    frontend: str = "tokens"           # tokens | fused
 
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"

@@ -2,7 +2,8 @@
 """Architecture registry: ``get_config(arch_id)`` / ``get_reduced(arch_id)``
 (port of ``repro/configs``).
 
-qwen2-1.5b and gemma2-27b are ported. The reference's other
+The dense and vlm architectures are ported (qwen2-1.5b, gemma2-27b,
+glm4-9b, chameleon-34b, nemotron-4-340b). The reference's other
 architectures raise a ``KeyError`` that says so; ROADMAP.md (queue 1,
 item 4) lists them in the order they are to be ported.
 """
@@ -13,9 +14,11 @@ import importlib
 _MODULES = {
     "qwen2-1.5b": "qwen2_1_5b",
     "gemma2-27b": "gemma2_27b",
+    "glm4-9b": "glm4_9b",
+    "chameleon-34b": "chameleon_34b",
+    "nemotron-4-340b": "nemotron_4_340b",
 }
-NOT_PORTED = ("granite-moe-1b-a400m", "deepseek-v2-236b", "glm4-9b",
-              "nemotron-4-340b", "chameleon-34b", "whisper-small",
+NOT_PORTED = ("granite-moe-1b-a400m", "deepseek-v2-236b", "whisper-small",
               "xlstm-1.3b", "zamba2-1.2b")
 
 ARCH_IDS = tuple(_MODULES)

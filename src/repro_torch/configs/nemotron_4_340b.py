@@ -1,0 +1,36 @@
+# repro: quarantine -- growth-seed LM model configs; nothing in the battery system reads them
+"""nemotron-4-340b [arXiv:2402.16819].
+
+96L d_model=18432 96H (GQA kv=8) d_ff=73728 vocab=256000; squared-ReLU
+(non-gated) MLP; bf16 parameters. Head dim 18432 / 96 = 192.
+
+The reference's memory preset for training (``adam_dtype="bfloat16"``,
+``remat_policy="full"``, ``scan_group=8``, ``train_accum=16``; its reduced
+form sets ``scan_group=0`` and ``adam_dtype="float32"``) is made of
+training knobs; the port serves only.
+"""
+import dataclasses
+
+from repro_torch.common.config import ModelConfig
+
+CONFIG = ModelConfig(
+    arch_id="nemotron-4-340b",
+    family="dense",
+    n_layers=96,
+    d_model=18432,
+    n_heads=96,
+    n_kv_heads=8,
+    d_ff=73728,
+    vocab_size=256000,
+    act="relu2",
+    gated_mlp=False,
+    rope=True,
+    rope_theta=10000.0,
+    param_dtype="bfloat16",
+)
+
+
+def reduced():
+    return dataclasses.replace(CONFIG, n_layers=2, d_model=64, n_heads=4,
+                               n_kv_heads=2, d_ff=256, vocab_size=256,
+                               param_dtype="float32")

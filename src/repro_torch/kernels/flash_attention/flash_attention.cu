@@ -53,7 +53,11 @@
 // query rows ty*8 .. ty*8+7; of the scores it computes columns
 // tx + 16*j (j < 4) and of the output columns tx + 16*j (j < DH / 16).
 // The 16 threads of a row group reduce its max and sum by shuffles.
-// Head dims up to 128 are taken (DH = 64 or 128, zero-filled past dh).
+// Head dims up to 192 are taken (DH = 64, 128 or 192, zero-filled past
+// dh; 192 is nemotron-4-340b's, 18432 / 96). At DH = 192 a thread holds
+// 8 x 12 float32 accumulators, and fa_fwd<float, 192> takes the most
+// shared memory of this route: 4 * (64 + 2 * 64) * 193 + 4 * 64 * 65 =
+// 164,864 bytes, one block per SM.
 //
 // Bound: at prefill shapes the work is operations. Causal attention does
 // about 2 * B * H * S^2 * dh FLOPs (QK^T and PV, halved by the mask)
@@ -270,7 +274,9 @@ cudaError_t launch(const Args& a, int B, cudaStream_t s) {
 
 template <typename T>
 cudaError_t launch_dh(const Args& a, int B, cudaStream_t s) {
-  return a.dh <= 64 ? launch<T, 64>(a, B, s) : launch<T, 128>(a, B, s);
+  if (a.dh <= 64) return launch<T, 64>(a, B, s);
+  if (a.dh <= 128) return launch<T, 128>(a, B, s);
+  return launch<T, 192>(a, B, s);
 }
 
 }  // namespace
@@ -280,7 +286,7 @@ cudaError_t launch_dh(const Args& a, int B, cudaStream_t s) {
 // o: contiguous (B, S, H, dh). dtype: 0 float32, 1 bfloat16. The mask is
 // causal (qpos >= kpos), and with window > 0 also qpos - kpos < window
 // (the forms a caller of the port needs; window 0 is causal alone).
-// S and T are multiples of 128, H a multiple of KH, 0 < dh <= 128,
+// S and T are multiples of 128, H a multiple of KH, 0 < dh <= 192,
 // window >= 0.
 // Returns the CUDA error code: 0 on success, cudaErrorInvalidValue on
 // arguments it does not take. Launches on `stream`.
@@ -291,7 +297,7 @@ extern "C" int repro_flash_attention(
     long long vss, long long vsh, float scale, float softcap, int window,
     void* stream) {
   if (B <= 0 || S % 128 || T % 128 || S <= 0 || T <= 0 || KH <= 0 ||
-      H % KH || dh <= 0 || dh > 128 || window < 0)
+      H % KH || dh <= 0 || dh > 192 || window < 0)
     return cudaErrorInvalidValue;
   Args a{q, k, v, o, S, T, H, KH, dh, qsb, qss, qsh, ksb, kss, ksh,
          vsb, vss, vsh, scale, softcap, window};

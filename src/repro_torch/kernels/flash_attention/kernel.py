@@ -11,7 +11,8 @@ Two routes, chosen by dtype and head dim before launch (``route``):
 ``"wgmma"``, the tensor-core kernel of ``fa_hopper.cuh``, for bfloat16
 at head dims 64 and 128; ``"simt"``, the CUDA-core kernel, for float32
 (tensor cores would round it to TF32) and for bfloat16 at other head
-dims. ``flash_attention.launches`` counts launches,
+dims up to ``MAX_HEAD_DIM`` (192, nemotron-4-340b's).
+``flash_attention.launches`` counts launches,
 ``flash_attention.calls`` counts them by
 ``(B, S, T, H, K, dh, dtype, route)`` and ``flash_attention.windowed``
 counts those given a sliding window (``window`` > 0); nothing else
@@ -29,7 +30,8 @@ from repro_torch.kernels import build
 
 # the reference's tile: callers pad S and T to a multiple of it
 BLOCK = 128
-MAX_HEAD_DIM = 128
+# the CUDA-core route's largest head dim (its DH 192 instantiation)
+MAX_HEAD_DIM = 192
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 WGMMA_HEAD_DIMS = (64, 128)
 _SYMBOLS = {"wgmma": "repro_flash_attention_wgmma",
@@ -61,8 +63,9 @@ def _call(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     b, s, h, dh = q.shape
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
     o = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device)
-    # shared memory: the larger route's, fa_wgmma<128> (fa_hopper.cuh
-    # Layout<128>::kBytes, 164,920 B; fa_fwd<float, 128> takes 115,712 B)
+    # shared memory: the largest instantiation's, fa_wgmma<128>
+    # (fa_hopper.cuh Layout<128>::kBytes, 164,920 B); the CUDA-core
+    # route's largest, fa_fwd<float, 192>, takes 164,864 B
     # repro: vmem-bound 41230
     with torch.cuda.device(q.device):
         rc = _entry(kind)(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
@@ -78,8 +81,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     window: int = 0) -> torch.Tensor:
     """Causal attention. q: (B, S, H, dh), k/v: (B, T, K, dh) CUDA
     tensors, all float32 or all bfloat16, H % K == 0, S and T multiples
-    of BLOCK, dh <= 128, each with a contiguous last dim -> o: contiguous
-    (B, S, H, dh) in q's dtype. ``window`` 0 is the causal mask; w > 0
+    of BLOCK, dh <= MAX_HEAD_DIM (192), each with a contiguous last dim
+    -> o: contiguous (B, S, H, dh) in q's dtype. ``window`` 0 is the causal mask; w > 0
     keeps only the keys with ``0 <= qpos - kpos < w`` (a window of at
     least S is the causal mask), and needs S <= T. On the ``wgmma`` route the tensors must
     also start on 16 bytes and have strides of whole 16 bytes (TMA)."""
@@ -113,8 +116,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"S={s} and T={t_len} must be positive multiples "
                          f"of {BLOCK} (ops.mha pads)")
     if not 0 < dh <= MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {dh} is above the kernel's "
-                         f"{MAX_HEAD_DIM}")
+        raise ValueError(f"head_dim {dh} is not in (0, {MAX_HEAD_DIM}], "
+                         f"the kernel's range")
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"flash_attention kernel needs q, k, v on one CUDA "
                          f"device, got {q.device}, {k.device}, {v.device}")

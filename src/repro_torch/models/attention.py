@@ -1,7 +1,8 @@
-# repro: quarantine -- growth-seed LM serving path (qwen2-1.5b, gemma2-27b); nothing in the battery system imports it
-"""GQA attention: projections, full-sequence causal attention (global,
-or local over a sliding window) and one-token decode (port of the GQA
-half of ``repro/models/attention.py``).
+# repro: quarantine -- growth-seed LM serving path (the dense and vlm families); nothing in the battery system imports it
+"""GQA attention: projections (with biases and qk-norm where the config
+has them), full-sequence causal attention (global, or local over a
+sliding window) and one-token decode (port of the GQA half of
+``repro/models/attention.py``).
 
 Full-sequence attention goes through ``kernels.flash_attention.ops.mha``
 on every device: the hand-written CUDA kernel for CUDA tensors, its
@@ -23,10 +24,13 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.flash_attention.ops import mha
-from repro_torch.models.common import apply_rope, rope_angles, softcap
+from repro_torch.models.common import (apply_rope, rmsnorm, rope_angles,
+                                       softcap)
 from repro_torch.models.params import P
 
 KINDS = ("global", "local")
+# qk-norm's eps: the reference's ``_rmsnorm_vec`` default, not cfg.norm_eps
+QK_NORM_EPS = 1e-6
 
 
 def spec_attention(cfg):
@@ -41,11 +45,16 @@ def spec_attention(cfg):
         spec["bq"] = P((h, dh), ("heads", "head_dim"), init="zeros")
         spec["bk"] = P((k, dh), ("kv_heads", "head_dim"), init="zeros")
         spec["bv"] = P((k, dh), ("kv_heads", "head_dim"), init="zeros")
+    if cfg.qk_norm:
+        spec["q_norm"] = P((dh,), ("head_dim",), init="zeros")
+        spec["k_norm"] = P((dh,), ("head_dim",), init="zeros")
     return spec
 
 
 def _project_qkv(p, x, cfg):
-    """x: (B, S, D) -> q (B, S, H, dh), k and v (B, S, K, dh)."""
+    """x: (B, S, D) -> q (B, S, H, dh), k and v (B, S, K, dh), biased and
+    then, with qk-norm, each head vector of q and k RMS-normed (float32
+    inside, ``1 + w``), before rope as in the reference."""
     q = torch.einsum("bsd,dhe->bshe", x, p["wq"].to(x.dtype))
     k = torch.einsum("bsd,dke->bske", x, p["wk"].to(x.dtype))
     v = torch.einsum("bsd,dke->bske", x, p["wv"].to(x.dtype))
@@ -53,6 +62,9 @@ def _project_qkv(p, x, cfg):
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
+    if "q_norm" in p:
+        q = rmsnorm(q, p["q_norm"], QK_NORM_EPS)
+        k = rmsnorm(k, p["k_norm"], QK_NORM_EPS)
     return q, k, v
 
 

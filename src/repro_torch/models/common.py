@@ -1,4 +1,4 @@
-# repro: quarantine -- growth-seed LM serving path (qwen2-1.5b, gemma2-27b); nothing in the battery system imports it
+# repro: quarantine -- growth-seed LM serving path (the dense and vlm families); nothing in the battery system imports it
 """Shared model primitives: norms, activations, softcap, rope (port of
 ``repro/models/common.py``)."""
 from __future__ import annotations
@@ -34,17 +34,24 @@ def apply_norm(p, x, cfg):
 # activations
 
 def act_fn(name: str):
-    """The gated MLP's activation: SiLU (SwiGLU) or GELU in its tanh form
-    (GeGLU; the reference's ``jax.nn.gelu(approximate=True)``). The
-    reference's plain GELU and squared ReLU serve families not ported
-    yet."""
+    """The MLP's activation: SiLU (SwiGLU), GELU in its tanh form (GeGLU;
+    the reference's ``jax.nn.gelu(approximate=True)``) or squared ReLU
+    (nemotron's ungated MLP), each in its input's dtype. The reference's
+    plain GELU serves whisper, which is not ported yet."""
     if name == "silu":
         return F.silu
     if name == "gelu":
         return lambda x: F.gelu(x, approximate="tanh")
+    if name == "relu2":
+        return relu2
     raise NotImplementedError(
-        f"activation {name!r} is not ported yet: only silu and gelu are "
-        f"(see ROADMAP.md, queue 1 item 4)")
+        f"activation {name!r} is not ported yet: only silu, gelu and relu2 "
+        f"are (see ROADMAP.md, queue 1 item 4)")
+
+
+def relu2(x):
+    """Squared ReLU, ``jnp.square(jax.nn.relu(x))`` in the reference."""
+    return F.relu(x).square()
 
 
 def softcap(x, cap: float):

@@ -1,6 +1,6 @@
-# repro: quarantine -- growth-seed LM serving path (qwen2-1.5b, gemma2-27b); nothing in the battery system imports it
-"""Prefill and single-token decode, dense family (port of
-``repro/models/decode.py``).
+# repro: quarantine -- growth-seed LM serving path (the dense and vlm families); nothing in the battery system imports it
+"""Prefill and single-token decode, dense and vlm families (port of
+``repro/models/decode.py``; vlm runs as dense there too).
 
 ``prefill(params, tokens, cfg, max_seq)`` runs the full-sequence forward
 while filling the decode cache. ``decode_step(params, cache, token, cfg)``

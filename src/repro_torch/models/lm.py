@@ -1,5 +1,5 @@
-# repro: quarantine -- growth-seed LM serving path (qwen2-1.5b, gemma2-27b); nothing in the battery system imports it
-"""Model assembly, dense family (port of ``repro/models/lm.py``).
+# repro: quarantine -- growth-seed LM serving path (the dense and vlm families); nothing in the battery system imports it
+"""Model assembly, dense and vlm families (port of ``repro/models/lm.py``).
 
 Public surface:
   model_spec(cfg)                           -> param Spec tree
@@ -16,8 +16,11 @@ gemma2's ``("local", "global")``, so ``n_layers / len(pattern)`` units.
 gemma2 (``arch_id`` starting with ``gemma2``) also scales the embedding
 by ``sqrt(d_model)``, cast to the compute dtype first as the reference
 does, adds post-norms on each block's attention and MLP outputs
-(``post_block_norm``) and softcaps the final logits. Other families
-raise ``NotImplementedError`` (ROADMAP.md, queue 1 item 4).
+(``post_block_norm``) and softcaps the final logits. The vlm family
+(chameleon) runs as dense, as in the reference: its ``fused`` frontend
+takes token ids over the fused text and image vocabulary, so there is
+no frontend code. Other families and frontends raise
+``NotImplementedError`` (ROADMAP.md, queue 1 item 4).
 """
 from __future__ import annotations
 
@@ -33,11 +36,19 @@ from repro_torch.models.params import (P, count_spec_params, init_from_spec,
                                        stack_spec, tree_map)
 
 
+FAMILIES = ("dense", "vlm")
+FRONTENDS = ("tokens", "fused")
+
+
 def _check_ported(cfg):
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"model family {cfg.family!r} ({cfg.arch_id}) is not ported yet: "
-            f"only the dense family is (see ROADMAP.md, queue 1 item 4)")
+            f"only {FAMILIES} are (see ROADMAP.md, queue 1 item 4)")
+    if cfg.frontend not in FRONTENDS:
+        raise NotImplementedError(
+            f"frontend {cfg.frontend!r} ({cfg.arch_id}) is not ported yet: "
+            f"only {FRONTENDS} are (see ROADMAP.md, queue 1 item 4)")
     act_fn(cfg.act)
 
 

@@ -40,6 +40,10 @@ REF_SHAPES = [(2, 256, 4, 2, 64, 0.0, "float32"),
               (1, 384, 2, 2, 128, 50.0, "float32"),
               (1, 128, 8, 1, 64, 0.0, "float32"),      # MQA
               (2, 256, 4, 4, 64, 0.0, "bfloat16")]
+# head dim 192 (nemotron-4-340b's, 18432 / 96) in both dtypes: the
+# CUDA-core route's DH 192 instantiation takes both on the card
+DH192_SHAPES = [(1, 256, 4, 2, 192, 0.0, "float32"),
+                (1, 256, 4, 2, 192, 30.0, "bfloat16")]
 
 
 def _qkv(seed, b, s, h, kh, dh):
@@ -58,10 +62,11 @@ def _jax(x, dtype):
     return jnp.asarray(x).astype(getattr(jnp, dtype))
 
 
-@pytest.mark.parametrize("b,s,h,kh,dh,cap,dtype", REF_SHAPES)
+@pytest.mark.parametrize("b,s,h,kh,dh,cap,dtype", REF_SHAPES + DH192_SHAPES)
 def test_mha_matches_pallas_kernel(b, s, h, kh, dh, cap, dtype):
     """The port's wrapper equals the reference wrapper over its Pallas
-    kernel (interpret mode) at the reference suite's shapes."""
+    kernel (interpret mode) at the reference suite's shapes, and at head
+    dim 192 in float32 and bfloat16."""
     from repro.kernels.flash_attention.ops import mha as ref_mha
     q, k, v = _qkv(s + h + dh, b, s, h, kh, dh)
     got = mha(*(_torch(x, dtype) for x in (q, k, v)), scale=dh ** -0.5,
@@ -196,7 +201,7 @@ def test_wgmma_arithmetic_within_tolerance(softcap):
 
 def test_launcher_routes_by_dtype_and_head_dim(monkeypatch):
     """bfloat16 at dh 64 and 128 takes the tensor-core route, float32 and
-    bfloat16 at other head dims the CUDA-core one; the choice is made
+    bfloat16 at other head dims (up to 192) the CUDA-core one; the choice is made
     before launch, counted under its route, and no call changes route.
     No kernel is built: ``_entry`` is stubbed, and the CPU tensors pass
     for CUDA ones."""
@@ -216,7 +221,8 @@ def test_launcher_routes_by_dtype_and_head_dim(monkeypatch):
     monkeypatch.setattr(fk.flash_attention, "calls", collections.Counter())
     cases = [(torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 64, "wgmma"),
              (torch.bfloat16, 96, "simt"), (torch.bfloat16, 32, "simt"),
-             (torch.float32, 128, "simt"), (torch.float32, 64, "simt")]
+             (torch.float32, 128, "simt"), (torch.float32, 64, "simt"),
+             (torch.bfloat16, 192, "simt"), (torch.float32, 192, "simt")]
     for dtype, dh, want in cases:
         assert fk.route(dtype, dh) == want
         x = torch.zeros((1, 128, 2, dh), dtype=dtype)
@@ -240,7 +246,7 @@ def test_launcher_routes_by_dtype_and_head_dim(monkeypatch):
 
 
 def test_launcher_validates_inputs():
-    """The launcher refuses a wrong dtype, dh > 128 and CPU tensors
+    """The launcher refuses a wrong dtype, dh > 192 and CPU tensors
     before it builds or launches anything; none of that counts as a
     launch, and neither does the CPU path of ``mha``."""
     launches = fk.flash_attention.launches
@@ -250,8 +256,8 @@ def test_launcher_validates_inputs():
                            ok.to(torch.int32), scale=1.0)
     with pytest.raises(TypeError):
         fk.flash_attention(ok, ok.to(torch.bfloat16), ok, scale=1.0)
-    wide = torch.zeros((1, 128, 2, 160))
-    with pytest.raises(ValueError, match="head_dim 160"):
+    wide = torch.zeros((1, 128, 2, 256))
+    with pytest.raises(ValueError, match="head_dim 256"):
         fk.flash_attention(wide, wide, wide, scale=1.0)
     with pytest.raises(ValueError, match="multiples of 128"):
         fk.flash_attention(ok[:, :100], ok[:, :100], ok[:, :100], scale=1.0)
@@ -279,7 +285,13 @@ def cuda():
     (2, 2048, 12, 2, 128, 0.0, "float32"),       # long kv loop at 2e-5
     (1, 200, 12, 2, 128, 0.0, "bfloat16"),       # padded
     (1, 384, 2, 2, 128, 50.0, "bfloat16"),       # tensor cores: softcap
-    (1, 128, 8, 1, 64, 0.0, "bfloat16")])        # and MQA at dh 64
+    (1, 128, 8, 1, 64, 0.0, "bfloat16"),         # and MQA at dh 64
+    (1, 2048, 32, 2, 128, 0.0, "bfloat16"),      # glm4-9b: GQA group 16
+    (1, 2048, 32, 2, 128, 0.0, "float32"),
+    (1, 1024, 64, 8, 128, 0.0, "bfloat16"),      # chameleon-34b
+    (1, 1024, 96, 8, 192, 0.0, "bfloat16"),      # nemotron-4-340b: dh 192
+    (1, 1024, 96, 8, 192, 0.0, "float32"),       # on the CUDA-core route
+    (1, 1000, 96, 8, 192, 0.0, "bfloat16")])     # padded
 def test_kernel_matches_plain_on_card(cuda, b, s, h, kh, dh, cap, dtype):
     q, k, v = (_torch(x, dtype).to(cuda) for x in _qkv(s, b, s, h, kh, dh))
     before = fk.flash_attention.launches

@@ -297,15 +297,19 @@ def simt_emulation(q, k, v, *, scale, softcap=0.0, window=0):
 def test_simt_window_loop_matches_plain(window):
     """The CUDA-core route's windowed loop (first tile from the window,
     rows erased by their first kept key) equals the plain version within
-    the float32 tolerance; a window of at least S walks and masks as the
+    the float32 tolerance, at head dim 32 and at 192 (nemotron's, the
+    route's largest); a window of at least S walks and masks as the
     causal loop does, bit for bit."""
-    q, k, v = (torch.from_numpy(x) for x in _qkv(window, 1, 384, 4, 2, 32))
-    got = simt_emulation(q, k, v, scale=0.2, softcap=50.0, window=window)
-    want = mha_ref(q, k, v, scale=0.2, softcap=50.0, window=window)
-    assert float((got - want).abs().max()) <= TOL["float32"]
-    if window >= 384:
-        assert torch.equal(got, simt_emulation(q, k, v, scale=0.2,
-                                               softcap=50.0))
+    for dh, seed in ((32, window), (192, window + 192)):
+        q, k, v = (torch.from_numpy(x) for x in _qkv(seed, 1, 384, 4, 2, dh))
+        scale = 0.2 * (32 / dh) ** 0.5
+        got = simt_emulation(q, k, v, scale=scale, softcap=50.0,
+                             window=window)
+        want = mha_ref(q, k, v, scale=scale, softcap=50.0, window=window)
+        assert float((got - want).abs().max()) <= TOL["float32"], dh
+        if window >= 384:
+            assert torch.equal(got, simt_emulation(q, k, v, scale=scale,
+                                                   softcap=50.0))
 
 
 @pytest.mark.parametrize("window", [1, 128, 300, 4096])
