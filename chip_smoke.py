@@ -159,6 +159,23 @@ Phases, one line each (details in ``reports/chip_smoke/chip_smoke.json``):
    decode step each; then float32 greedy parity, kernel against plain,
    on a 1 x 1000-token prompt at 4 layers (nemotron 1). Each model is
    freed before the next is built.
+15. (run right after phase 14) granite-moe-1b-a400m and deepseek-v2-236b
+   on the card: the kernel alone at deepseek's MLA prefill attention
+   shape (1 x 4096, 128 heads, q and k 192 wide, v 128: the CUDA-core
+   route's (192, 128) instantiation, bfloat16 and float32) and granite's
+   (1 x 4096, 16 heads on 8, dh 64, ``wgmma``) against its plain version,
+   timed beside its bound and ``scaled_dot_product_attention``, with the
+   sdpa backend that took the call and those that take it alone; then
+   each at full width in bfloat16 parameters, granite at full depth
+   (2.67 GB), deepseek at 8 of its 60 layers (1 dense + 7 MoE, 58.38
+   GB): granite 1 x 4096 with 16 greedy tokens and 4 x 512 with 32,
+   deepseek 1 x 4096 with 8 and 4 x 512 with 16; one flash-attention
+   launch a layer a prefill (granite's 24 on ``wgmma``, deepseek's 8 on
+   ``simt`` with dv 128); one profiled prefill and decode step each; then
+   float32 greedy parity, kernel against plain, on a 1 x 1000-token
+   prompt (granite at full depth, deepseek at 2 layers), the router's
+   least top-k margin per step printed before a failure. Each model is
+   freed before the next is built.
 
 Phase 3 times every kernel at the shapes the main paths gave it (BigCrush
 for the battery kernels and mwc, phase 6 for flash attention).
@@ -166,9 +183,9 @@ for the battery kernels and mwc, phase 6 for flash attention).
 Any failure raises, and the script exits non-zero without a result line;
 the traceback and ``nvidia-smi -q`` go to ``reports/chip_smoke/chip_smoke_failure.txt``.
 The kernels' JSON adds each kernel's launches in phases 8, 9, 10, 11,
-13 and 14 (``launches_captured_bigcrush``, ``launches_campaign``,
+13, 14 and 15 (``launches_captured_bigcrush``, ``launches_campaign``,
 ``launches_elastic_faults``, ``launches_serve``, ``launches_gemma2``,
-``launches_dense_archs``)
+``launches_dense_archs``, ``launches_moe``)
 beside those of the main path. The last three lines are the kernels' JSON, the card, and
 ``{"ok": true, "device": {...}}``.
 """
@@ -335,6 +352,31 @@ DENSE_FA = [("glm4-9b", (1, 8192, 32, 2, 128, 0.0, "bfloat16")),
             ("chameleon-34b", (1, 4096, 64, 8, 128, 0.0, "bfloat16")),
             ("nemotron-4-340b", (1, 4096, 96, 8, 192, 0.0, "bfloat16")),
             ("nemotron-4-340b", (1, 4096, 96, 8, 192, 0.0, "float32"))]
+# phase 15: the moe family at full width in bfloat16 parameters: layers
+# served (None: full depth; deepseek-v2-236b's 60 layers are 471.5 GB, so
+# 8 of them, 1 dense + 7 MoE, 58.38 GB), the flash-attention route of
+# every prefill launch, its q/k and v head dims, and (batch, prompt
+# length, generated tokens) of each request
+MOE_ARCHS = {
+    "granite-moe-1b-a400m": (None, "wgmma", (64, 64),
+                             [(1, 4096, 16), (4, 512, 32)]),
+    "deepseek-v2-236b": (8, "simt", (192, 128),
+                         [(1, 4096, 8), (4, 512, 16)]),
+}
+# then float32 parity at full width, kernel against plain: layers per arch
+# (None: granite's 24, 5.34 GB; deepseek 1 dense + 1 MoE, 21.43 GB), a
+# ragged prompt
+MOE_PARITY_LAYERS = {"granite-moe-1b-a400m": None, "deepseek-v2-236b": 2}
+MOE_PARITY = (1, 1000, 8)
+# each arch's prefill attention at its longest phase-15 prompt, the kernel
+# alone: (B, S, H, K, dh, softcap, dtype, dv); deepseek's MLA (dh 192,
+# dv 128 on the CUDA-core route) in both dtypes
+MOE_FA = [("deepseek-v2-236b", (1, 4096, 128, 128, 192, 0.0, "bfloat16",
+                                128)),
+          ("deepseek-v2-236b", (1, 4096, 128, 128, 192, 0.0, "float32",
+                                128)),
+          ("granite-moe-1b-a400m", (1, 4096, 16, 8, 64, 0.0, "bfloat16",
+                                    64))]
 # (batch, prompt length, generated tokens) of the serve phase
 SERVE = [(4, 512, 64), (2, 2048, 16)]
 # float32 serve parity, kernel vs plain: last-position logits are O(1)
@@ -598,14 +640,16 @@ def simt_attention(q, k, v, scale, softcap, window=0):
     return o
 
 
-def fa_case(b, s, h, kh, dh, cap, dtype, seed=0):
+def fa_case(b, s, h, kh, dh, cap, dtype, seed=0, dv=None, name_sdpa=False):
     """Check the flash-attention kernel against its plain version at
-    q (B, S, H, dh), k/v (B, S, K, dh), and time both and the library
-    call. ``ops.mha`` pads S to a multiple of 128; the kernel call is
-    timed through it, as the model calls it. Where the tensor-core route
-    takes the shape (S a multiple of 128), its output is also held, row by
-    row, against its own arithmetic emulated in float32, and the CUDA-core
-    route is checked and timed on the same inputs."""
+    q (B, S, H, dh), k (B, S, K, dh), v (B, S, K, dv) (dv default dh),
+    and time both and the library call. ``ops.mha`` pads S to a multiple
+    of 128; the kernel call is timed through it, as the model calls it.
+    Where the tensor-core route takes the shape (S a multiple of 128), its
+    output is also held, row by row, against its own arithmetic emulated
+    in float32, and the CUDA-core route is checked and timed on the same
+    inputs. ``name_sdpa`` also records which of sdpa's backends take the
+    call alone and which one its dispatch picks (``sdpa_backend``)."""
     import torch
     import torch.nn.functional as F
     from test_torch_flash import WGMMA_ROW_RTOL, row_rel_err, wgmma_emulation
@@ -613,9 +657,10 @@ def fa_case(b, s, h, kh, dh, cap, dtype, seed=0):
     from repro_torch.kernels.flash_attention.ops import mha
     from repro_torch.kernels.flash_attention.ref import mha_ref
     dt = getattr(torch, dtype)
+    dv = dh if dv is None else dv
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v = (torch.randn((b, s, n, dh), generator=g, device="cuda").to(dt)
-               for n in (h, kh, kh))
+    q, k, v = (torch.randn((b, s, n, d), generator=g, device="cuda").to(dt)
+               for n, d in ((h, dh), (kh, dh), (kh, dv)))
     scale = dh ** -0.5
     got = mha(q, k, v, scale=scale, softcap=cap)
     want = mha_ref(q, k, v, scale=scale, softcap=cap)
@@ -623,14 +668,16 @@ def fa_case(b, s, h, kh, dh, cap, dtype, seed=0):
     check(got.shape == want.shape and bool(torch.isfinite(got).all()),
           f"flash_attention {b}x{s}: shape or non-finite output")
     err = float((got.float() - want.float()).abs().max())
+    check(got.shape[-1] == dv, f"flash_attention {b}x{s}: output head dim "
+          f"{got.shape[-1]}, want v's {dv}")
     check(err <= FA_ATOL[dtype], f"flash_attention B{b} S{s} H{h} K{kh} "
-          f"dh{dh} cap{cap} {dtype}: max |kernel - plain| {err} > "
+          f"dh{dh} dv{dv} cap{cap} {dtype}: max |kernel - plain| {err} > "
           f"{FA_ATOL[dtype]}")
     # unmasked (query, key) pairs of the causal mask, on the real length;
-    # QK^T and PV each take 2 * dh operations per pair
+    # QK^T takes 2 * dh operations per pair and PV 2 * dv
     esize = torch.finfo(dt).bits // 8
-    n_ops = 4 * dh * b * h * s * (s + 1) // 2
-    n_bytes = esize * dh * b * (2 * s * h + 2 * s * kh)
+    n_ops = 2 * (dh + dv) * b * h * s * (s + 1) // 2
+    n_bytes = esize * b * s * (h + kh) * (dh + dv)
     peak = SCALAR_OPS_PER_S if dt == torch.float32 else TENSOR_BF16_FLOPS
     bound, by = bound_ms(n_bytes, n_ops, peak)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
@@ -645,7 +692,9 @@ def fa_case(b, s, h, kh, dh, cap, dtype, seed=0):
     if not cap:
         times["library_ms"] = median_ms(library)
         times["library_device_ms"] = device_ms(library)
-    kind = route(dt, dh)
+        if name_sdpa:
+            times["sdpa"] = sdpa_backend(library, qt, kt, vt, scale)
+    kind = route(dt, dh, dv)
     if kind == "wgmma" and s % 128 == 0:
         same = wgmma_emulation(q, k, v, scale=scale, softcap=cap)
         times["row_rel_err"] = row_rel_err(got, same)
@@ -665,7 +714,8 @@ def fa_case(b, s, h, kh, dh, cap, dtype, seed=0):
             lambda: simt_attention(q, k, v, scale, cap))
         times["simt_device_ms"] = device_ms(
             lambda: simt_attention(q, k, v, scale, cap))
-    return {"b": b, "s": s, "h": h, "kh": kh, "dh": dh, "softcap": cap,
+    return {"b": b, "s": s, "h": h, "kh": kh, "dh": dh, "dv": dv,
+            "softcap": cap,
             "dtype": dtype, "route": kind, **times,
             "max_abs_err": err, "atol": FA_ATOL[dtype],
             "ms": median_ms(kernel),
@@ -685,12 +735,48 @@ def print_fa(c):
             f"simt route {c['simt_ms']:.4f} ms (device "
             f"{c['simt_device_ms']:.4f}, err {c['simt_err']:.3g})"
             if "simt_ms" in c else "")
+    dv = "" if c["dv"] == c["dh"] else f" dv{c['dv']}"
+    if "sdpa" in c:
+        kernels = ", ".join(n[:48] for n in c["sdpa"]["kernels"][:2])
+        lib += (f" [backend {c['sdpa']['took']} ({kernels or 'kernels not '
+                'captured'}); alone: {','.join(c['sdpa']['accept'])}]")
     print(f"[kernels] flash_attention B{c['b']} S{c['s']} H{c['h']} "
-          f"K{c['kh']} dh{c['dh']} cap{c['softcap']} {c['dtype']} "
+          f"K{c['kh']} dh{c['dh']}{dv} cap{c['softcap']} {c['dtype']} "
           f"({c['route']}): max err {c['max_abs_err']:.3g} <= {c['atol']} | "
           f"kernel {c['ms']:.4f} ms (device {c['device_ms']:.4f}), plain "
           f"{c['plain_ms']:.4f} ms, sdpa {lib}, bound {c['bound_ms']:.4f} ms "
           f"({c['bound_by']}){simt}", flush=True)
+
+
+def sdpa_backend(call, q, k, v, scale):
+    """Which of ``scaled_dot_product_attention``'s backends take ``call``
+    (causal, GQA, on q, k, v in its (B, H, S, d) layout) when it is the
+    only one allowed (``accept``), which one its dispatch picks with all
+    allowed (``took``: ``torch._fused_sdp_choice`` on the same inputs),
+    and the device kernels of one profiled call (``kernels``; the
+    profiler has returned none for so short a call late in a run)."""
+    import warnings
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    accept = []
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "MATH"):
+        try:
+            # a refusing backend warns its reasons before it raises
+            with warnings.catch_warnings(), sdpa_kernel(
+                    getattr(SDPBackend, name)):
+                warnings.simplefilter("ignore")
+                call()
+            torch.cuda.synchronize()
+            accept.append(name.lower())
+        except RuntimeError:
+            pass
+    backends = {int(getattr(SDPBackend, n)): n.lower() for n in dir(SDPBackend)
+                if n.isupper()}
+    choice = int(torch._fused_sdp_choice(q, k, v, None, 0.0, True,
+                                         scale=scale, enable_gqa=True))
+    return {"accept": accept, "took": backends.get(choice, str(choice)),
+            "kernels": [n for n, _, _ in device_busy(call)["by_name"]][:6]}
 
 
 def attended_pairs(s, window):
@@ -905,6 +991,7 @@ def zero_counts():
         fn.calls.clear()
         if hasattr(fn, "windowed"):
             fn.windowed = 0
+            fn.split_dv = 0
 
 
 def launch_counts():
@@ -2337,6 +2424,214 @@ def dense_archs_phase(card):
     return out
 
 
+@contextlib.contextmanager
+def router_margins(store):
+    """While inside, each MoE layer call also appends to ``store`` its
+    router's least top-k margin over its tokens: the k-th largest
+    probability minus the (k+1)-th (a 0-d tensor; read after the run).
+    A near-tie there is where two runs may route a token apart."""
+    from repro_torch.models import moe as moe_mod
+    original = moe_mod.moe
+
+    def recorded(p, x, cfg):
+        probs, _, _ = moe_mod.route(p, x.reshape(-1, x.shape[-1]), cfg.moe)
+        top = probs.topk(cfg.moe.top_k + 1, dim=-1).values
+        store.append((top[:, -2] - top[:, -1]).min())
+        return original(p, x, cfg)
+    moe_mod.moe = recorded
+    try:
+        yield store
+    finally:
+        moe_mod.moe = original
+
+
+def moe_phase(card):
+    """Phase 15: granite-moe-1b-a400m and deepseek-v2-236b on the card,
+    weights from seed 0, each model freed before the next is built.
+
+    (a) The kernel alone at each arch's prefill attention shape (MOE_FA:
+    deepseek's MLA heads, q and k 192 wide and v 128, on the CUDA-core
+    route in bfloat16 and float32; granite's dh 64 on ``wgmma``), through
+    ``fa_case``: against ``mha_ref`` within FA_ATOL, per-call and device
+    ms, the operations bound, ``scaled_dot_product_attention``'s time and
+    the backend that took it.
+    (b) Each arch at full width with bfloat16 parameters (granite at full
+    depth, deepseek at 8 of 60 layers), compute bfloat16: MOE_ARCHS'
+    requests, each after a warm-up at its shape; one flash-attention
+    launch per layer per prefill, all on the arch's route at its head
+    dims (deepseek's all with dv 128: ``split_dv``); prefill ms, decode
+    ms per step, tokens/s, peak memory; one profiled prefill of the
+    longest prompt and one decode step. Launch counts are zeroed just
+    before each measured request and read just after.
+    (c) Each arch at full width and MOE_PARITY_LAYERS layers in float32
+    parameters and compute: the ragged MOE_PARITY prompt greedy through
+    the kernel and with the model's attention rebound to the plain
+    version: last-position logits within SERVE_LOGITS_ATOL and every
+    greedy token equal; the router's least top-k margin per step is
+    recorded and printed before a failure."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.lm import init_params
+    from repro_torch.models.params import leaves
+    flash = _kernel_fns()["flash_attention"]
+    out = {"launches": {name: 0 for name in _kernel_fns()},
+           "attention": [], "archs": {}}
+    torch.cuda.empty_cache()
+    for arch, (b, s, h, kh, dh, cap, dtype, dv) in MOE_FA:
+        c = fa_case(b, s, h, kh, dh, cap, dtype, seed=5, dv=dv,
+                    name_sdpa=True)
+        c["arch"] = arch
+        out["attention"].append(c)
+        print_fa(c)
+        torch.cuda.empty_cache()
+
+    for arch, (layers, fa_route, (dqk, dv), requests) in MOE_ARCHS.items():
+        base = get_config(arch)
+        cfg = dataclasses.replace(base, param_dtype="bfloat16",
+                                  n_layers=layers or base.n_layers)
+        m = cfg.moe
+        rec = {"layers": cfg.n_layers, "full_layers": base.n_layers,
+               "reduced": (None if layers is None else
+                           f"n_layers {base.n_layers} -> {layers}: "
+                           f"{base.n_params()} bfloat16 parameters do not "
+                           f"fit on one 80 GB card"),
+               "n_params": cfg.n_params(),
+               "n_active_params": cfg.n_active_params(), "runs": []}
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=0)
+        torch.cuda.synchronize()
+        rec["init_s"] = time.perf_counter() - t0
+        rec["param_bytes"] = sum(p.numel() * p.element_size()
+                                 for p in leaves(params))
+        attn = (f"MLA q_lora {cfg.mla.q_lora_rank} kv_lora "
+                f"{cfg.mla.kv_lora_rank} dqk {dqk} dv {dv}" if cfg.mla else
+                f"GQA {cfg.n_heads}H/{cfg.n_kv_heads}kv dh {cfg.head_dim_}")
+        print(f"[moe] {arch} at full width, {cfg.n_layers} of "
+              f"{base.n_layers} layers (d{cfg.d_model}, {attn}; "
+              f"{m.first_dense_layers} dense layers ff{m.d_ff_dense}, "
+              f"{m.n_experts} experts top-{m.top_k} ff{m.d_ff_expert}, "
+              f"{m.n_shared} shared ff{m.d_ff_shared}; vocab "
+              f"{cfg.vocab_size}): {rec['n_params']} bfloat16 parameters "
+              f"({rec['param_bytes']} B; {rec['n_active_params']} active a "
+              f"token) from seed 0 on cuda in {rec['init_s']:.2f}s | {card}",
+              flush=True)
+        prompts_by_len = {}
+        for i, (batch, plen, gen) in enumerate(requests):
+            prompts = prompts_for(cfg, batch, plen, seed=500 + i)
+            prompts_by_len[plen] = prompts
+            greedy(params, prompts, cfg, 2)          # warm-up at this shape
+            zero_counts()
+            torch.cuda.reset_peak_memory_stats()
+            first, toks, t_pre, t_dec = greedy(params, prompts, cfg, gen)
+            launches = launch_counts()
+            fa = fa_launches(flash)
+            dhs = sorted({key[5] for key in flash.calls})
+            split = flash.split_dv
+            check(fa == {"launches": cfg.n_layers,
+                         "routes": {fa_route: cfg.n_layers}, "windowed": 0}
+                  and dhs == [dqk]
+                  and split == (cfg.n_layers if dv != dqk else 0),
+                  f"{arch} {batch}x{plen}: flash-attention launches {fa} at "
+                  f"dh {dhs}, {split} with dv != dh; want {cfg.n_layers} on "
+                  f"{fa_route} at dh {dqk}, dv {dv}")
+            for name, n in launches.items():
+                out["launches"][name] += n
+            run = {"batch": batch, "prompt_len": plen, "gen_len": gen,
+                   "prefill_ms": t_pre * 1e3,
+                   "decode_ms_per_step": t_dec * 1e3 / (gen - 1),
+                   "tokens_per_s": batch * gen / (t_pre + t_dec),
+                   "prefill_tokens_per_s": batch * plen / t_pre,
+                   "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                   "flash": fa, "split_dv": split,
+                   "calls": {str(k): n for k, n in flash.calls.items()},
+                   "tokens": toks.tolist()}
+            rec["runs"].append(run)
+            print(f"[moe] {arch} {batch} x {plen}-token prompts, {gen} "
+                  f"greedy tokens each: prefill {run['prefill_ms']:.2f} ms, "
+                  f"decode {run['decode_ms_per_step']:.3f} ms/token (one per "
+                  f"request per step), {run['tokens_per_s']:.2f} generated "
+                  f"tokens/s, max_memory_allocated "
+                  f"{run['max_memory_allocated']} B, flash_attention "
+                  f"{fa['launches']} launches by route {fa['routes']} at dh "
+                  f"{dqk} dv {dv} ({split} with dv != dh)", flush=True)
+        run = max(rec["runs"], key=lambda r: r["prompt_len"] * r["batch"])
+        rec["profile"] = profile_serving("moe", params, cfg, run,
+                                         prompts_by_len[run["prompt_len"]])
+        del params, prompts_by_len
+        torch.cuda.empty_cache()
+
+        # (c) float32 parity, kernel against plain
+        check(not torch.backends.cuda.matmul.allow_tf32,
+              "TF32 matmuls are on: float32 parity needs full float32")
+        cfg32 = dataclasses.replace(
+            base, n_layers=MOE_PARITY_LAYERS[arch] or base.n_layers,
+            param_dtype="float32", compute_dtype="float32")
+        params = init_params(cfg32, seed=0)
+        batch, plen, gen = MOE_PARITY
+        prompts = prompts_for(cfg32, batch, plen, seed=600)
+        zero_counts()
+        with router_margins([]) as k_margins:
+            k_first, k_toks, k_pre, _ = greedy(params, prompts, cfg32, gen)
+        fa = fa_launches(flash)
+        check(fa == {"launches": cfg32.n_layers,
+                     "routes": {"simt": cfg32.n_layers}, "windowed": 0},
+              f"{arch} float32 parity: flash-attention launches {fa}")
+        kernel_mha = attn_mod.mha
+        attn_mod.mha = mha_ref
+        try:
+            zero_counts()
+            with router_margins([]) as p_margins:
+                p_first, p_toks, p_pre, _ = greedy(params, prompts, cfg32,
+                                                   gen)
+            check(launch_counts()["flash_attention"] == 0,
+                  f"the plain {arch} run launched the kernel")
+        finally:
+            attn_mod.mha = kernel_mha
+        n_moe = cfg32.n_layers - cfg32.moe.first_dense_layers
+        margins = [[float(min(ms[i:i + n_moe]))
+                    for i in range(0, len(ms), n_moe)]
+                   for ms in (k_margins, p_margins)]
+        logit_err = float((k_first - p_first).abs().max())
+        differ = (k_toks != p_toks).any(dim=0).nonzero()
+        if logit_err > SERVE_LOGITS_ATOL or len(differ):
+            last = int(differ[0]) if len(differ) else 0
+            for step in range(last + 1):
+                here = " (tokens differ here)" if len(differ) else ""
+                print(f"[moe parity] {arch} step {step}: least router "
+                      f"top-{cfg32.moe.top_k} margin kernel "
+                      f"{margins[0][step]:.3g}, plain {margins[1][step]:.3g}"
+                      f"{here if step == last else ''}", flush=True)
+        check(logit_err <= SERVE_LOGITS_ATOL,
+              f"{arch} float32: last-position logits kernel vs plain differ "
+              f"by {logit_err} > {SERVE_LOGITS_ATOL}")
+        check(not len(differ),
+              f"{arch} float32: greedy tokens differ between kernel and "
+              f"plain from step {int(differ[0]) if len(differ) else -1}")
+        rec["parity"] = {
+            "layers": cfg32.n_layers, "prompt": [batch, plen], "gen": gen,
+            "float32_logits_max_abs_err": logit_err,
+            "atol": SERVE_LOGITS_ATOL, "float32_tokens_equal": True,
+            "float32_flash": fa,
+            "router_margin_min": {"kernel": min(margins[0]),
+                                  "plain": min(margins[1])},
+            "float32_prefill_ms": {"kernel": k_pre * 1e3,
+                                   "plain": p_pre * 1e3}}
+        print(f"[moe parity] {arch}, {cfg32.n_layers} layers at full "
+              f"width, float32 parameters and compute, {batch} x {plen}-"
+              f"token prompt, {gen} greedy tokens: equal with the kernel "
+              f"({fa['launches']} launches on {fa['routes']}) and the plain "
+              f"version; last-position logits max |diff| {logit_err:.3g} <= "
+              f"{SERVE_LOGITS_ATOL}; least router top-{cfg32.moe.top_k} "
+              f"margin {min(margins[0]):.3g}", flush=True)
+        del params
+        torch.cuda.empty_cache()
+        out["archs"][arch] = rec
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -2809,6 +3104,10 @@ def main():
     t0 = time.perf_counter()
     details["dense_archs"] = dense_archs_phase(card)
     t_dense = time.perf_counter() - t0
+    # 15. granite-moe-1b-a400m, deepseek-v2-236b (after phase 14's are freed)
+    t0 = time.perf_counter()
+    details["moe"] = moe_phase(card)
+    t_moe = time.perf_counter() - t0
 
     # 8-9. captured bitstreams and a generator-fleet campaign, at full size
     tmp = tempfile.mkdtemp(prefix="chip_smoke_capture_")
@@ -2840,14 +3139,16 @@ def main():
     details["phase_s"] = {"captured": t1 - t0, "campaign": t2 - t1,
                           "elastic_faults": t3 - t2, "screening": t4 - t3,
                           "analysis": t5 - t4, "gemma2": t_gemma2,
-                          "dense_archs": t_dense}
+                          "dense_archs": t_dense, "moe": t_moe}
     print(f"[time] phase 8 (captured) {t1 - t0:.1f}s, phase 9 (campaign) "
           f"{t2 - t1:.1f}s, phase 10 (elastic, faults) {t3 - t2:.1f}s, "
           f"phase 11 (screening) {t4 - t3:.1f}s, phase 12 (analysis) "
           f"{t5 - t4:.1f}s, phase 13 (gemma2, run after phase 7) "
           f"{t_gemma2:.1f}s, phase 14 (glm4, chameleon, nemotron, after "
-          f"13) {t_dense:.1f}s, {t0 - t_start - t_gemma2 - t_dense:.1f}s "
-          f"before phase 8 besides them", flush=True)
+          f"13) {t_dense:.1f}s, phase 15 (granite-moe, deepseek-v2, after "
+          f"14) {t_moe:.1f}s, "
+          f"{t0 - t_start - t_gemma2 - t_dense - t_moe:.1f}s before phase 8 "
+          f"besides them", flush=True)
 
     # the kernels at the shapes their main paths gave them
     main_calls = calls["bigcrush"]
@@ -2904,10 +3205,12 @@ def main():
             "launches_gemma2": details["gemma2"]["launches"][name],
             "launches_dense_archs":
                 details["dense_archs"]["launches"][name],
+            "launches_moe": details["moe"]["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in
                                cases + details["parity"][name]
                                + (details["gemma2_attention"]
                                   + details["dense_archs"]["attention"]
+                                  + details["moe"]["attention"]
                                   if name == "flash_attention" else [])),
             "ms": total("ms"), "device_ms": total("device_ms"),
             "plain_ms": total("plain_ms"),

@@ -1,11 +1,11 @@
-# repro: quarantine -- growth-seed LM serving path (the dense and vlm families); nothing in the battery system imports it
+# repro: quarantine -- growth-seed LM serving path (the dense, vlm and moe families); nothing in the battery system imports it
 """Model configuration of the LM serving path (from the reference's
-``repro/common/config.py``: ``pad_to`` and the fields of ``ModelConfig``
-that the port reads).
+``repro/common/config.py``: ``pad_to``, ``MoEConfig``, ``MLAConfig`` and
+the fields of ``ModelConfig`` that the port reads).
 
 The reference's other fields describe families, modalities and training
-knobs the port does not run yet (MoE, MLA, SSM, xLSTM, whisper's
-encoder-decoder, remat, Adam's dtype, scan groups, gradient
+knobs the port does not run yet (SSM, xLSTM, whisper's encoder-decoder,
+zamba2's shared attention, remat, Adam's dtype, scan groups, gradient
 accumulation); each comes back in the slice that first reads it. Until
 then a configuration that needs one cannot be written here, so none is
 silently ignored.
@@ -21,9 +21,32 @@ def pad_to(x: int, multiple: int) -> int:
 
 
 @dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 0                 # routed experts
+    top_k: int = 0
+    d_ff_expert: int = 0
+    n_shared: int = 0                  # always-on shared experts (DeepSeek)
+    d_ff_shared: int = 0
+    first_dense_layers: int = 0        # leading dense layers (DeepSeek-V2: 1)
+    d_ff_dense: int = 0                # d_ff of those dense layers
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (DeepSeek-V2)."""
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                        # dense | vlm (run as dense)
+    family: str                        # dense | vlm (run as dense) | moe
     n_layers: int
     d_model: int
     n_heads: int
@@ -49,6 +72,9 @@ class ModelConfig:
     query_scale: Optional[float] = None  # override 1/sqrt(head_dim)
     post_block_norm: bool = False      # gemma2 post-norms
 
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
+
     # inputs: token ids, or (fused, vlm) ids over the fused text and image
     # vocabulary; the reference's "frames" (whisper) is not ported
     frontend: str = "tokens"           # tokens | fused
@@ -70,3 +96,8 @@ class ModelConfig:
         """Parameter count from the port's own spec (shapes only)."""
         from repro_torch.models.lm import count_params
         return count_params(self)
+
+    def n_active_params(self) -> int:
+        """Parameters one token meets: routed experts' at top_k / n_experts."""
+        from repro_torch.models.lm import count_params
+        return count_params(self, active_only=True)

@@ -2,8 +2,9 @@
 """Architecture registry: ``get_config(arch_id)`` / ``get_reduced(arch_id)``
 (port of ``repro/configs``).
 
-The dense and vlm architectures are ported (qwen2-1.5b, gemma2-27b,
-glm4-9b, chameleon-34b, nemotron-4-340b). The reference's other
+The dense, vlm and moe architectures are ported (qwen2-1.5b,
+gemma2-27b, glm4-9b, chameleon-34b, nemotron-4-340b,
+granite-moe-1b-a400m, deepseek-v2-236b). The reference's other
 architectures raise a ``KeyError`` that says so; ROADMAP.md (queue 1,
 item 4) lists them in the order they are to be ported.
 """
@@ -17,9 +18,10 @@ _MODULES = {
     "glm4-9b": "glm4_9b",
     "chameleon-34b": "chameleon_34b",
     "nemotron-4-340b": "nemotron_4_340b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "deepseek-v2-236b": "deepseek_v2_236b",
 }
-NOT_PORTED = ("granite-moe-1b-a400m", "deepseek-v2-236b", "whisper-small",
-              "xlstm-1.3b", "zamba2-1.2b")
+NOT_PORTED = ("whisper-small", "xlstm-1.3b", "zamba2-1.2b")
 
 ARCH_IDS = tuple(_MODULES)
 

@@ -1,6 +1,7 @@
 // Causal flash attention, forward, for Hopper (sm_90a): the CUDA-core
-// route. The launcher (kernel.py) takes it for float32 and for bfloat16
-// at head dims other than 64 and 128; bfloat16 at 64 and 128 takes the
+// route. The launcher (kernel.py) takes it for float32, for bfloat16 at
+// head dims other than 64 and 128, and for any call whose v head dim dv
+// differs from q's and k's dh; bfloat16 at dh = dv = 64 or 128 takes the
 // tensor-core route of fa_hopper.cuh (entry repro_flash_attention_wgmma
 // at the end of this file). Tensor cores would compute float32 only in
 // TF32, which cannot hold the float32 tolerance of 2e-5.
@@ -40,10 +41,16 @@
 // that key comes.
 //
 // GQA: the block reads kv head h / (H / KH) directly, where the TPU
-// wrapper materialized jnp.repeat. q, k and v come in (B, S, H, dh)
+// wrapper materialized jnp.repeat. q, k and v come in (B, S, H, d)
 // layout with any strides on the first three dims (the head dim must be
 // contiguous), so the wrapper's transposes are not copies; o is written
-// contiguous (B, S, H, dh).
+// contiguous (B, S, H, dv).
+//
+// v's head dim dv may be smaller than q's and k's dh (DeepSeek-V2's MLA:
+// dh 128 + 64 = 192, dv 128). The Pallas kernel has dv = dh only; its
+// reference (models/attention.py sdpa) takes dv of its own, and so does
+// this route: the q and k tiles are DQK wide, the v tile and the output
+// columns DV wide.
 //
 // Tiles: BQ = 64 query rows and BK = 64 keys, 128 threads. q, k and v
 // tiles sit in shared memory in the input type (float32 or bfloat16),
@@ -51,17 +58,20 @@
 // of different rows hit different banks; scores, probabilities and all
 // softmax state are float32. Thread (ty, tx) = (tid / 16, tid % 16) owns
 // query rows ty*8 .. ty*8+7; of the scores it computes columns
-// tx + 16*j (j < 4) and of the output columns tx + 16*j (j < DH / 16).
+// tx + 16*j (j < 4) and of the output columns tx + 16*j (j < DV / 16).
 // The 16 threads of a row group reduce its max and sum by shuffles.
-// Head dims up to 192 are taken (DH = 64, 128 or 192, zero-filled past
-// dh; 192 is nemotron-4-340b's, 18432 / 96). At DH = 192 a thread holds
-// 8 x 12 float32 accumulators, and fa_fwd<float, 192> takes the most
-// shared memory of this route: 4 * (64 + 2 * 64) * 193 + 4 * 64 * 65 =
-// 164,864 bytes, one block per SM.
+// Head dims up to 192 are taken: (DQK, DV) = (64, 64), (128, 128),
+// (192, 192) and (192, 128), zero-filled past dh and dv (192 is
+// nemotron-4-340b's, 18432 / 96; (192, 128) DeepSeek-V2's MLA). At
+// DV = 192 a thread holds 8 x 12 float32 accumulators, and
+// fa_fwd<float, 192, 192> takes the most shared memory of this route:
+// 4 * (64 + 2 * 64) * 193 + 4 * 64 * 65 = 164,864 bytes, one block per
+// SM; fa_fwd<float, 192, 128> takes 4 * ((64 + 64) * 193 + 64 * 129) +
+// 4 * 64 * 65 = 148,480.
 //
 // Bound: at prefill shapes the work is operations. Causal attention does
-// about 2 * B * H * S^2 * dh FLOPs (QK^T and PV, halved by the mask)
-// against 2 * (B*S*H + 2*B*T*KH) * dh * bytes-per-element of traffic.
+// about B * H * S^2 * (dh + dv) FLOPs (QK^T and PV, halved by the mask)
+// against (B*S*H + B*T*KH) * (dh + dv) * bytes-per-element of traffic.
 // This route does its dot products on the CUDA cores in float32
 // (67 TFLOP/s at most, where bf16 tensor cores give 989); fa_hopper.cuh
 // is the bfloat16 route on the tensor cores.
@@ -104,7 +114,7 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
-  int S, T, H, KH, dh;
+  int S, T, H, KH, dh, dv;
   long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;
   float scale, softcap;
   int window;  // 0: causal; w > 0: keep 0 <= qpos - kpos < w
@@ -115,12 +125,14 @@ template <typename T, int DH> __host__ __device__ constexpr int ld() {
   return DH + 4 / (int)sizeof(T);
 }
 
-template <typename T, int DH> constexpr size_t smem_bytes() {
-  return sizeof(T) * (size_t)(kBQ + 2 * kBK) * ld<T, DH>() +
+template <typename T, int DQK, int DV> constexpr size_t smem_bytes() {
+  return sizeof(T) * ((size_t)(kBQ + kBK) * ld<T, DQK>() +
+                      (size_t)kBK * ld<T, DV>()) +
          sizeof(float) * (size_t)kBQ * (kBK + 1);
 }
 
-// Copy rows [row0, row0 + n) of one head into a shared tile, zero past dh.
+// Copy rows [row0, row0 + n) of one head into a shared tile DH wide,
+// zero past the head dim dh.
 template <typename T, int DH>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
                                           long long row_stride, int dh,
@@ -132,15 +144,16 @@ __device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads) fa_fwd(Args a) {
-  constexpr int LD = ld<T, DH>();
-  constexpr int kOut = DH / 16;  // output columns per thread
+  constexpr int LD = ld<T, DQK>();
+  constexpr int LDV = ld<T, DV>();
+  constexpr int kOut = DV / 16;  // output columns per thread
   extern __shared__ __align__(16) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem);
   T* sK = sQ + kBQ * LD;
   T* sV = sK + kBK * LD;
-  float* sP = reinterpret_cast<float*>(sV + kBK * LD);
+  float* sP = reinterpret_cast<float*>(sV + kBK * LDV);
 
   // heaviest causal tiles first
   const int qt = gridDim.x - 1 - blockIdx.x;
@@ -165,7 +178,7 @@ __global__ void __launch_bounds__(kThreads) fa_fwd(Args a) {
     for (int j = 0; j < kOut; ++j) acc[i][j] = 0.f;
   }
 
-  load_tile<T, DH>(sQ, qp, q0, a.qss, a.dh, kBQ);
+  load_tile<T, DQK>(sQ, qp, q0, a.qss, a.dh, kBQ);
 
   // kv tiles from the window's first key (0 when causal) up to the
   // causal diagonal
@@ -176,8 +189,8 @@ __global__ void __launch_bounds__(kThreads) fa_fwd(Args a) {
   for (int kt = kt_lo; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's sK, sV and sP are consumed
-    load_tile<T, DH>(sK, kp, k0, a.kss, a.dh, kBK);
-    load_tile<T, DH>(sV, vp, k0, a.vss, a.dh, kBK);
+    load_tile<T, DQK>(sK, kp, k0, a.kss, a.dh, kBK);
+    load_tile<T, DV>(sV, vp, k0, a.vss, a.dv, kBK);
     __syncthreads();
 
     float s[kRows][kCols];
@@ -186,7 +199,7 @@ __global__ void __launch_bounds__(kThreads) fa_fwd(Args a) {
 #pragma unroll
       for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < DH; ++d) {
+    for (int d = 0; d < DQK; ++d) {
       float qv[kRows], kv[kCols];
 #pragma unroll
       for (int i = 0; i < kRows; ++i) qv[i] = to_f(sQ[(r0 + i) * LD + d]);
@@ -240,7 +253,7 @@ __global__ void __launch_bounds__(kThreads) fa_fwd(Args a) {
 #pragma unroll
       for (int i = 0; i < kRows; ++i) pv[i] = sP[(r0 + i) * (kBK + 1) + c];
 #pragma unroll
-      for (int j = 0; j < kOut; ++j) vv[j] = to_f(sV[c * LD + tx + 16 * j]);
+      for (int j = 0; j < kOut; ++j) vv[j] = to_f(sV[c * LDV + tx + 16 * j]);
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
 #pragma unroll
@@ -252,54 +265,59 @@ __global__ void __launch_bounds__(kThreads) fa_fwd(Args a) {
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const float inv_l = 1.f / fmaxf(l[i], 1e-37f);
-    T* row = op + (((long long)b * a.S + q0 + r0 + i) * a.H + h) * a.dh;
+    T* row = op + (((long long)b * a.S + q0 + r0 + i) * a.H + h) * a.dv;
 #pragma unroll
     for (int j = 0; j < kOut; ++j) {
       const int d = tx + 16 * j;
-      if (d < a.dh) row[d] = from_f<T>(acc[i][j] * inv_l);
+      if (d < a.dv) row[d] = from_f<T>(acc[i][j] * inv_l);
     }
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DQK, int DV>
 cudaError_t launch(const Args& a, int B, cudaStream_t s) {
-  const size_t smem = smem_bytes<T, DH>();
+  const size_t smem = smem_bytes<T, DQK, DV>();
   cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      fa_fwd<T, DQK, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid(a.S / kBQ, B * a.H);
-  fa_fwd<T, DH><<<grid, kThreads, smem, s>>>(a);
+  fa_fwd<T, DQK, DV><<<grid, kThreads, smem, s>>>(a);
   return cudaGetLastError();
 }
 
+// The instantiation for (dh, dv), dv <= dh: DQK the least of 64, 128, 192
+// that holds dh; DV = 192 -> 128 where dv fits in 128 (MLA's split), else
+// DV = DQK (v zero-filled past dv).
 template <typename T>
 cudaError_t launch_dh(const Args& a, int B, cudaStream_t s) {
-  if (a.dh <= 64) return launch<T, 64>(a, B, s);
-  if (a.dh <= 128) return launch<T, 128>(a, B, s);
-  return launch<T, 192>(a, B, s);
+  if (a.dh <= 64) return launch<T, 64, 64>(a, B, s);
+  if (a.dh <= 128) return launch<T, 128, 128>(a, B, s);
+  if (a.dv <= 128) return launch<T, 192, 128>(a, B, s);
+  return launch<T, 192, 192>(a, B, s);
 }
 
 }  // namespace
 
-// q: (B, S, H, dh), k and v: (B, T, KH, dh), each with the given strides
-// (in elements) for its first three dims and a contiguous last dim;
-// o: contiguous (B, S, H, dh). dtype: 0 float32, 1 bfloat16. The mask is
-// causal (qpos >= kpos), and with window > 0 also qpos - kpos < window
-// (the forms a caller of the port needs; window 0 is causal alone).
-// S and T are multiples of 128, H a multiple of KH, 0 < dh <= 192,
-// window >= 0.
+// q: (B, S, H, dh), k: (B, T, KH, dh) and v: (B, T, KH, dv), each with
+// the given strides (in elements) for its first three dims and a
+// contiguous last dim; o: contiguous (B, S, H, dv). dtype: 0 float32,
+// 1 bfloat16. The mask is causal (qpos >= kpos), and with window > 0 also
+// qpos - kpos < window (the forms a caller of the port needs; window 0 is
+// causal alone). S and T are multiples of 128, H a multiple of KH,
+// 0 < dv <= dh <= 192, window >= 0.
 // Returns the CUDA error code: 0 on success, cudaErrorInvalidValue on
 // arguments it does not take. Launches on `stream`.
 extern "C" int repro_flash_attention(
     int dtype, const void* q, const void* k, const void* v, void* o, int B,
-    int S, int T, int H, int KH, int dh, long long qsb, long long qss,
-    long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
-    long long vss, long long vsh, float scale, float softcap, int window,
-    void* stream) {
+    int S, int T, int H, int KH, int dh, int dv, long long qsb,
+    long long qss, long long qsh, long long ksb, long long kss, long long ksh,
+    long long vsb, long long vss, long long vsh, float scale, float softcap,
+    int window, void* stream) {
   if (B <= 0 || S % 128 || T % 128 || S <= 0 || T <= 0 || KH <= 0 ||
-      H % KH || dh <= 0 || dh > 192 || window < 0)
+      H % KH || dh <= 0 || dh > 192 || dv <= 0 || dv > dh || window < 0)
     return cudaErrorInvalidValue;
-  Args a{q, k, v, o, S, T, H, KH, dh, qsb, qss, qsh, ksb, kss, ksh,
+  Args a{q, k, v, o, S, T, H, KH, dh, dv, qsb, qss, qsh, ksb, kss, ksh,
          vsb, vss, vsh, scale, softcap, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
@@ -310,18 +328,19 @@ extern "C" int repro_flash_attention(
 }
 
 // The tensor-core route: the same arguments and contract as
-// repro_flash_attention, for dtype 1 (bfloat16) and dh 64 or 128 only,
-// with 16-byte aligned q, k, v and strides that are multiples of 8
+// repro_flash_attention, for dtype 1 (bfloat16) and dh = dv = 64 or 128
+// only, with 16-byte aligned q, k, v and strides that are multiples of 8
 // elements (TMA's 16-byte rule). cudaErrorInvalidValue otherwise, and when
 // a tensor map cannot be encoded.
 extern "C" int repro_flash_attention_wgmma(
     int dtype, const void* q, const void* k, const void* v, void* o, int B,
-    int S, int T, int H, int KH, int dh, long long qsb, long long qss,
-    long long qsh, long long ksb, long long kss, long long ksh, long long vsb,
-    long long vss, long long vsh, float scale, float softcap, int window,
-    void* stream) {
+    int S, int T, int H, int KH, int dh, int dv, long long qsb,
+    long long qss, long long qsh, long long ksb, long long kss, long long ksh,
+    long long vsb, long long vss, long long vsh, float scale, float softcap,
+    int window, void* stream) {
   if (dtype != 1 || B <= 0 || S % 128 || T % 128 || S <= 0 || T <= 0 ||
-      KH <= 0 || H % KH || (dh != 64 && dh != 128) || window < 0)
+      KH <= 0 || H % KH || (dh != 64 && dh != 128) || dv != dh ||
+      window < 0)
     return cudaErrorInvalidValue;
   for (const void* ptr : {q, k, v})
     if (reinterpret_cast<uintptr_t>(ptr) % 16) return cudaErrorInvalidValue;

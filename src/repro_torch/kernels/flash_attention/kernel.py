@@ -7,16 +7,19 @@ Replaces the Pallas kernel ``src/repro/kernels/flash_attention/kernel.py``
 wrapper folded in: the kernel reads q in ``(B, S, H, dh)`` and k/v in
 ``(B, T, K, dh)`` through their strides.
 
-Two routes, chosen by dtype and head dim before launch (``route``):
-``"wgmma"``, the tensor-core kernel of ``fa_hopper.cuh``, for bfloat16
-at head dims 64 and 128; ``"simt"``, the CUDA-core kernel, for float32
-(tensor cores would round it to TF32) and for bfloat16 at other head
-dims up to ``MAX_HEAD_DIM`` (192, nemotron-4-340b's).
+v may have a head dim of its own, ``dv <= dh`` (MLA's 128 beside its
+192-wide q and k); the output has v's. Two routes, chosen by dtype and
+head dims before launch (``route``): ``"wgmma"``, the tensor-core kernel
+of ``fa_hopper.cuh``, for bfloat16 at dh = dv = 64 or 128; ``"simt"``,
+the CUDA-core kernel, for float32 (tensor cores would round it to TF32),
+for bfloat16 at other head dims up to ``MAX_HEAD_DIM`` (192,
+nemotron-4-340b's), and for any call with ``dv != dh``.
 ``flash_attention.launches`` counts launches,
 ``flash_attention.calls`` counts them by
-``(B, S, T, H, K, dh, dtype, route)`` and ``flash_attention.windowed``
-counts those given a sliding window (``window`` > 0); nothing else
-touches them.
+``(B, S, T, H, K, dh, dtype, route)`` (dh is q's and k's),
+``flash_attention.windowed`` counts those given a sliding window
+(``window`` > 0) and ``flash_attention.split_dv`` those with
+``dv != dh``; nothing else touches them.
 """
 from __future__ import annotations
 
@@ -38,18 +41,19 @@ _SYMBOLS = {"wgmma": "repro_flash_attention_wgmma",
             "simt": "repro_flash_attention"}
 
 
-def route(dtype: torch.dtype, dh: int) -> str:
+def route(dtype: torch.dtype, dh: int, dv: int = None) -> str:
     """The kernel that takes a call: ``"wgmma"`` for bfloat16 at head
-    dims 64 and 128, ``"simt"`` otherwise."""
+    dims dh = dv (default dh) of 64 or 128, ``"simt"`` otherwise."""
+    dv = dh if dv is None else dv
     return ("wgmma" if dtype == torch.bfloat16 and dh in WGMMA_HEAD_DIMS
-            else "simt")
+            and dv == dh else "simt")
 
 
 @functools.lru_cache(maxsize=None)
 def _entry(kind: str):
     fn = getattr(build.load("flash_attention"), _SYMBOLS[kind])
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
-                   + [ctypes.c_int] * 6 + [ctypes.c_longlong] * 9
+                   + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 9
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -59,18 +63,21 @@ def _entry(kind: str):
 def _call(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
           scale: float, softcap: float, window: int = 0):
     """Launch route ``kind`` on inputs that ``flash_attention`` has
-    checked, on q's current stream, uncounted -> (CUDA error code, o)."""
+    checked, on q's current stream, uncounted -> (CUDA error code, o).
+    v's head dim goes to the kernel right after q's and k's ``dh``."""
     b, s, h, dh = q.shape
+    dv = v.shape[3]
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
-    o = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device)
+    o = torch.empty((b, s, h, dv), dtype=q.dtype, device=q.device)
     # shared memory: the largest instantiation's, fa_wgmma<128>
     # (fa_hopper.cuh Layout<128>::kBytes, 164,920 B); the CUDA-core
-    # route's largest, fa_fwd<float, 192>, takes 164,864 B
+    # route's largest, fa_fwd<float, 192, 192>, takes 164,864 B, and
+    # fa_fwd<float, 192, 128> 148,480 B
     # repro: vmem-bound 41230
     with torch.cuda.device(q.device):
         rc = _entry(kind)(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
                           v.data_ptr(), o.data_ptr(), b, s, k.shape[1], h,
-                          k.shape[2], dh, *strides, float(scale),
+                          k.shape[2], dh, dv, *strides, float(scale),
                           float(softcap), int(window),
                           torch.cuda.current_stream(q.device).cuda_stream)
     return rc, o
@@ -79,13 +86,14 @@ def _call(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: float, softcap: float = 0.0,
                     window: int = 0) -> torch.Tensor:
-    """Causal attention. q: (B, S, H, dh), k/v: (B, T, K, dh) CUDA
-    tensors, all float32 or all bfloat16, H % K == 0, S and T multiples
-    of BLOCK, dh <= MAX_HEAD_DIM (192), each with a contiguous last dim
-    -> o: contiguous (B, S, H, dh) in q's dtype. ``window`` 0 is the causal mask; w > 0
-    keeps only the keys with ``0 <= qpos - kpos < w`` (a window of at
-    least S is the causal mask), and needs S <= T. On the ``wgmma`` route the tensors must
-    also start on 16 bytes and have strides of whole 16 bytes (TMA)."""
+    """Causal attention. q: (B, S, H, dh), k: (B, T, K, dh), v: (B, T,
+    K, dv) CUDA tensors, all float32 or all bfloat16, H % K == 0, S and T
+    multiples of BLOCK, 0 < dv <= dh <= MAX_HEAD_DIM (192), each with a
+    contiguous last dim -> o: contiguous (B, S, H, dv) in q's dtype.
+    ``window`` 0 is the causal mask; w > 0 keeps only the keys with
+    ``0 <= qpos - kpos < w`` (a window of at least S is the causal mask),
+    and needs S <= T. On the ``wgmma`` route the tensors must also start
+    on 16 bytes and have strides of whole 16 bytes (TMA)."""
     if not 0 <= window < 2 ** 31:
         raise ValueError(f"window {window} is not in [0, 2^31) (0 is "
                          f"causal)")
@@ -102,11 +110,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              f"strides {st}")
         strides += st[:3]
     b, s, h, dh = q.shape
-    t_len, kh = k.shape[1], k.shape[2]
-    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != dh:
+    t_len, kh, dv = k.shape[1], k.shape[2], v.shape[3]
+    if (k.shape[:3] != v.shape[:3] or k.shape[0] != b or k.shape[3] != dh
+            or not 0 < dv <= dh):
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not fit (B,S,H,dh) / "
-                         f"(B,T,K,dh)")
+                         f"(B,T,K,dh) / (B,T,K,dv) with 0 < dv <= dh")
     if window and s > t_len:
         raise ValueError(f"a window needs S <= T, got S={s}, T={t_len}: "
                          f"a query past T + window - 1 has no key")
@@ -121,7 +130,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if not (q.is_cuda and k.device == q.device and v.device == q.device):
         raise ValueError(f"flash_attention kernel needs q, k, v on one CUDA "
                          f"device, got {q.device}, {k.device}, {v.device}")
-    kind = route(q.dtype, dh)
+    kind = route(q.dtype, dh, dv)
     # TMA: 16-byte aligned starts; bf16 strides of whole 16 bytes
     if kind == "wgmma" and (any(t.data_ptr() % 16 for t in (q, k, v))
                             or any(st % 8 for st in strides)):
@@ -136,9 +145,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     flash_attention.calls[(b, s, t_len, h, kh, dh, str(q.dtype), kind)] += 1
     if window:
         flash_attention.windowed += 1
+    if dv != dh:
+        flash_attention.split_dv += 1
     return o
 
 
 flash_attention.launches = 0
 flash_attention.calls = collections.Counter()
 flash_attention.windowed = 0
+flash_attention.split_dv = 0

@@ -25,11 +25,12 @@ def _pad_seq(x, n):
 
 
 def mha(q, k, v, *, scale, softcap=0.0, window=0):
-    """Causal attention. q: (B, S, H, dh); k/v: (B, T, K, dh) with
-    H % K == 0 -> (B, S, H, dh) in q's dtype. ``window`` 0 is the causal
-    mask; w > 0 keeps the keys with ``0 <= qpos - kpos < w`` (the
-    reference's local attention). The reference's non-causal form has no
-    caller in the port; neither the kernel nor this wrapper takes it."""
+    """Causal attention. q: (B, S, H, dh); k: (B, T, K, dh), v: (B, T,
+    K, dv) with H % K == 0 and dv <= dh -> (B, S, H, dv) in q's dtype.
+    ``window`` 0 is the causal mask; w > 0 keeps the keys with
+    ``0 <= qpos - kpos < w`` (the reference's local attention). The
+    reference's non-causal form has no caller in the port; neither the
+    kernel nor this wrapper takes it."""
     if window < 0:
         raise ValueError(f"window {window} is negative (0 is causal)")
     s, t = q.shape[1], k.shape[1]

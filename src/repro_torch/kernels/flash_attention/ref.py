@@ -1,17 +1,19 @@
 # repro: quarantine -- growth-seed attention kernel; unrelated to the TestU01 battery kernels
 """Plain PyTorch version of the flash-attention kernel (port of
 ``repro/kernels/flash_attention/ref.py``), and of the kernel's call in
-the ``(B, S, H, dh)`` GQA layout."""
+the ``(B, S, H, dh)`` GQA layout. v may have a head dim of its own
+(``dv``, MLA's 128 beside its 192-wide q and k); the output has v's."""
 import torch
 
 NEG = -2.3819763e38
 
 
 def attention_ref(q, k, v, *, scale, softcap=0.0, window=0):
-    """Causal attention, the kernel's plain version. q/k/v: (BH, S, dh)
-    -> (BH, S, dh) in q's dtype, computed in fp32. ``window`` 0 is the
-    causal mask (``qpos >= kpos``); ``window`` w > 0 is a sliding window
-    (``0 <= qpos - kpos < w``), the reference's ``kind="local"`` mask.
+    """Causal attention, the kernel's plain version. q/k: (BH, S, dh),
+    v: (BH, S, dv) -> (BH, S, dv) in q's dtype, computed in fp32.
+    ``window`` 0 is the causal mask (``qpos >= kpos``); ``window`` w > 0
+    is a sliding window (``0 <= qpos - kpos < w``), the reference's
+    ``kind="local"`` mask.
     The softcap comes before the mask, as in the reference."""
     s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
     if softcap:
@@ -27,17 +29,17 @@ def attention_ref(q, k, v, *, scale, softcap=0.0, window=0):
 
 
 def mha_ref(q, k, v, *, scale, softcap=0.0, window=0):
-    """The kernel's function in its own layout: q (B, S, H, dh), k/v
-    (B, T, K, dh) -> (B, S, H, dh). Repeats the kv heads and folds the
-    heads into the batch, as the reference wrapper does, then calls
-    ``attention_ref``."""
+    """The kernel's function in its own layout: q (B, S, H, dh), k
+    (B, T, K, dh), v (B, T, K, dv) -> (B, S, H, dv). Repeats the kv heads
+    and folds the heads into the batch, as the reference wrapper does,
+    then calls ``attention_ref``."""
     b, s, h, dh = q.shape
-    kh = k.shape[2]
+    kh, dv = k.shape[2], v.shape[3]
     if kh != h:
         k = k.repeat_interleave(h // kh, dim=2)
         v = v.repeat_interleave(h // kh, dim=2)
     qf = q.transpose(1, 2).reshape(b * h, s, dh)
     kf = k.transpose(1, 2).reshape(b * h, k.shape[1], dh)
-    vf = v.transpose(1, 2).reshape(b * h, v.shape[1], dh)
+    vf = v.transpose(1, 2).reshape(b * h, v.shape[1], dv)
     o = attention_ref(qf, kf, vf, scale=scale, softcap=softcap, window=window)
-    return o.reshape(b, h, s, dh).transpose(1, 2)
+    return o.reshape(b, h, s, dv).transpose(1, 2)

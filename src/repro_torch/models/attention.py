@@ -1,8 +1,8 @@
-# repro: quarantine -- growth-seed LM serving path (the dense and vlm families); nothing in the battery system imports it
-"""GQA attention: projections (with biases and qk-norm where the config
-has them), full-sequence causal attention (global, or local over a
-sliding window) and one-token decode (port of the GQA half of
-``repro/models/attention.py``).
+# repro: quarantine -- growth-seed LM serving path (the dense, vlm and moe families); nothing in the battery system imports it
+"""Attention: GQA (projections with biases and qk-norm where the config
+has them, full-sequence causal attention, global or local over a sliding
+window, and one-token decode) and DeepSeek-V2's multi-head latent
+attention (port of ``repro/models/attention.py``).
 
 Full-sequence attention goes through ``kernels.flash_attention.ops.mha``
 on every device: the hand-written CUDA kernel for CUDA tensors, its
@@ -12,12 +12,19 @@ as the kernel's sliding window (``0 <= qpos - kpos < window``), and
 the same function with its dense or blocked XLA path (``sdpa``), whose
 TPU-hardware twin is the Pallas kernel that the CUDA kernel ports (the
 Pallas kernel has no window; the reference's local layers never reach
-it). Bidirectional and cross attention, custom positions and MLA have
-no configuration in the port yet and raise (ROADMAP.md, queue 1).
+it). MLA's prefill builds every head's k (``[k_nope, k_rope]``, 192
+wide at full size) and v (128) from the shared latent and calls the
+same ``mha`` with a v head dim of its own. Bidirectional and cross
+attention and custom positions have no configuration in the port yet
+and raise (ROADMAP.md, queue 1).
 
 Decode attention is plain torch over the cache, as the reference
-computes it outside any kernel. It writes the new k/v into the cache in
-place, where the reference returns new arrays.
+computes it outside any kernel: GQA over the k/v cache, MLA in the
+reference's absorbed form over the latent cache (``ckv`` and the shared
+rope key ``kr``). Both write the new token's entries into the cache in
+place, where the reference returns new arrays, and score positions
+``0..pos`` only (the reference scores every cached position and masks
+the rest to weights of exactly 0).
 """
 from __future__ import annotations
 
@@ -49,6 +56,24 @@ def spec_attention(cfg):
         spec["q_norm"] = P((dh,), ("head_dim",), init="zeros")
         spec["k_norm"] = P((dh,), ("head_dim",), init="zeros")
     return spec
+
+
+def spec_mla(cfg):
+    m = cfg.mla
+    d, h = cfg.d_model, cfg.n_heads
+    dq, dkv = m.q_lora_rank, m.kv_lora_rank
+    dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+    return {
+        "w_dq": P((d, dq), ("embed", "q_lora")),
+        "q_norm": P((dq,), ("q_lora",), init="zeros"),
+        "w_uq": P((dq, h, dn + dr), ("q_lora", "heads", "head_dim")),
+        "w_dkv": P((d, dkv), ("embed", "kv_lora")),
+        "kv_norm": P((dkv,), ("kv_lora",), init="zeros"),
+        "w_uk": P((dkv, h, dn), ("kv_lora", "heads", "head_dim")),
+        "w_uv": P((dkv, h, dv), ("kv_lora", "heads", "head_dim")),
+        "w_kr": P((d, dr), ("embed", "head_dim")),
+        "wo": P((h, dv, d), ("heads", "head_dim", "embed")),
+    }
 
 
 def _project_qkv(p, x, cfg):
@@ -145,3 +170,80 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg, *, kind="global"):
     out = out.reshape(b, 1, cfg.n_heads, cfg.head_dim_)
     y = torch.einsum("bshe,hed->bsd", out, p["wo"].to(x.dtype))
     return y, cache_k, cache_v
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+
+def _mla_scale(cfg):
+    m = cfg.mla
+    return (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+
+
+def _mla_q(p, x, cfg, positions):
+    """x: (B, S, D) -> q_nope (B, S, H, dn), q_rope (B, S, H, dr) after
+    rope: the query's low-rank path, RMS-normed (eps fixed as for
+    qk-norm) between its two projections."""
+    m = cfg.mla
+    cq = rmsnorm(x @ p["w_dq"].to(x.dtype), p["q_norm"], QK_NORM_EPS)
+    q = torch.einsum("bsr,rhe->bshe", cq, p["w_uq"].to(x.dtype))
+    q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
+    cos, sin = rope_angles(positions, m.qk_rope_head_dim, cfg.rope_theta)
+    return q_nope, apply_rope(q_rope, cos, sin)
+
+
+def _mla_latent(p, x, cfg, positions):
+    """x: (B, S, D) -> the cached latent c_kv (B, S, r), RMS-normed, and
+    the rope key k_rope (B, S, dr) that every head shares."""
+    m = cfg.mla
+    c_kv = rmsnorm(x @ p["w_dkv"].to(x.dtype), p["kv_norm"], QK_NORM_EPS)
+    k_rope = x @ p["w_kr"].to(x.dtype)
+    cos, sin = rope_angles(positions, m.qk_rope_head_dim, cfg.rope_theta)
+    return c_kv, apply_rope(k_rope[:, :, None, :], cos, sin)[:, :, 0, :]
+
+
+def mla_attention(p, x, cfg, *, return_cache=False):
+    """Full-sequence causal MLA (prefill / forward). x: (B, S, D) -> y
+    (B, S, D), and (c_kv, k_rope) for the cache when ``return_cache``.
+    Every head's k is ``[k_nope, k_rope]`` (dn + dr wide) and its v is
+    dv wide, both materialized from the latent, through ``mha``."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    pos = torch.arange(s, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, cfg, pos)
+    c_kv, k_rope = _mla_latent(p, x, cfg, pos)
+    k_nope = torch.einsum("bsr,rhe->bshe", c_kv, p["w_uk"].to(x.dtype))
+    v = torch.einsum("bsr,rhe->bshe", c_kv, p["w_uv"].to(x.dtype))
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(
+        b, s, cfg.n_heads, m.qk_rope_head_dim)], dim=-1)
+    out = mha(q, k, v.contiguous(), scale=_mla_scale(cfg))
+    y = torch.einsum("bshe,hed->bsd", out, p["wo"].to(x.dtype))
+    if return_cache:
+        return y, (c_kv, k_rope)
+    return y
+
+
+def mla_decode(p, x, cache_ckv, cache_kr, pos, cfg):
+    """Absorbed MLA decode: scores and values in the latent space. x:
+    (B, 1, D); cache_ckv (B, S_max, r), cache_kr (B, S_max, dr); pos: the
+    int position of the new token. Writes its latent and rope key into
+    the cache at ``pos`` in place and attends over ``0..pos``. Returns
+    (y, cache_ckv, cache_kr)."""
+    posv = torch.full((1,), pos, device=x.device)
+    q_nope, q_rope = _mla_q(p, x, cfg, posv)                    # (B,1,H,*)
+    c_kv, k_rope = _mla_latent(p, x, cfg, posv)
+    cache_ckv[:, pos] = c_kv[:, 0].to(cache_ckv.dtype)
+    cache_kr[:, pos] = k_rope[:, 0].to(cache_kr.dtype)
+    ckv = cache_ckv[:, :pos + 1].to(x.dtype)
+    kr = cache_kr[:, :pos + 1].to(x.dtype)
+    # absorb W_uk into q: (B,1,H,dn) x (r,H,dn) -> (B,1,H,r)
+    q_lat = torch.einsum("bshe,rhe->bshr", q_nope, p["w_uk"].to(x.dtype))
+    scores = (torch.einsum("bshr,btr->bhst", q_lat.float(), ckv.float())
+              + torch.einsum("bshe,bte->bhst", q_rope.float(), kr.float())
+              ) * _mla_scale(cfg)
+    w = torch.softmax(scores, dim=-1).to(x.dtype)
+    o_lat = torch.einsum("bhst,btr->bshr", w, ckv)
+    out = torch.einsum("bshr,rhe->bshe", o_lat, p["w_uv"].to(x.dtype))
+    y = torch.einsum("bshe,hed->bsd", out, p["wo"].to(x.dtype))
+    return y, cache_ckv, cache_kr

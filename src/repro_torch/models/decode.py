@@ -1,52 +1,66 @@
-# repro: quarantine -- growth-seed LM serving path (the dense and vlm families); nothing in the battery system imports it
-"""Prefill and single-token decode, dense and vlm families (port of
+# repro: quarantine -- growth-seed LM serving path (the dense, vlm and moe families); nothing in the battery system imports it
+"""Prefill and single-token decode, dense, vlm and moe families (port of
 ``repro/models/decode.py``; vlm runs as dense there too).
 
 ``prefill(params, tokens, cfg, max_seq)`` runs the full-sequence forward
 while filling the decode cache. ``decode_step(params, cache, token, cfg)``
-writes one token's k/v into the cache in place (the reference returns a
-new cache) and returns the cache with ``pos`` advanced. A greedy request
-is ``prefill``, then ``argmax`` -> ``decode_step`` per generated token.
-Both walk the units and, in each, its blocks by kind
-(``lm._unit_structure``: gemma2's local then global block), with the
-post-norms where a block has them.
+writes one token's cache entries in place (the reference returns a new
+cache) and returns the cache with ``pos`` advanced. A greedy request is
+``prefill``, then ``argmax`` -> ``decode_step`` per generated token.
+Both walk the stacks of ``lm.stacks`` (moe: the leading dense layers,
+then the MoE units) and, in each unit, its blocks by kind (gemma2's
+local then global block), with the post-norms where a block has them.
+A GQA block caches k/v; an MLA block (deepseek-v2) caches its latent
+``ckv`` and rope key ``kr`` and decodes in the absorbed form. The MoE
+layer routes the B tokens of a decode step as their own group, as in
+the reference.
 """
 from __future__ import annotations
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.common import apply_norm
-from repro_torch.models.lm import (_lm_logits, _unit_structure,
-                                   apply_attn_block, embed, init_cache, unit)
-from repro_torch.models.mlp import mlp
+from repro_torch.models.lm import (_lm_logits, apply_attn_block, apply_mlp,
+                                   block_cache, block_params, embed,
+                                   init_cache, stacks, unit)
 
 
 def prefill(params, tokens, cfg, max_seq=None):
     """tokens: (B, S) int -> (last-position logits (B, V_padded), cache
-    with k/v for positions 0..S-1, zeros after, ``pos`` = S)."""
+    with entries for positions 0..S-1, zeros after, ``pos`` = S)."""
     b, s = tokens.shape
     max_seq = max_seq or s
     cache = init_cache(cfg, b, max_seq, device=tokens.device)
-    n_units, blocks = _unit_structure(cfg)
     x = embed(params, tokens, cfg)
-    for i in range(n_units):
-        up = unit(params["units"], i)
-        for key, kind in blocks:
-            x, (k, v) = apply_attn_block(up[key], x, cfg, kind)
-            cache["units"][key]["k"][i, :, :s] = k
-            cache["units"][key]["v"][i, :, :s] = v
+    for pkey, ckey, n, blocks in stacks(cfg):
+        for i in range(n):
+            up = unit(params[pkey], i)
+            for blk in blocks:
+                x, kv, _ = apply_attn_block(block_params(up, blk), x, cfg,
+                                            blk)
+                leaves = block_cache(cache, ckey, blk)
+                for name, val in kv.items():
+                    leaves[name][i, :, :s] = val
     cache["pos"] = s
     xl = apply_norm(params["final_norm"], x[:, -1:], cfg)
     return _lm_logits(params, xl, cfg)[:, 0], cache
 
 
-def _block_decode(p, x, ck, cv, pos, cfg, kind):
-    h, _, _ = attn_mod.attention_decode(
-        p["attn"], apply_norm(p["pre_attn"], x, cfg), ck, cv, pos, cfg,
-        kind=kind)
+def _block_decode(p, x, leaves, i, pos, cfg, blk):
+    """One block on one token: attention over unit ``i``'s cache
+    ``leaves`` (written at ``pos`` in place), then the MLP."""
+    h = apply_norm(p["pre_attn"], x, cfg)
+    if blk.mla:
+        h, _, _ = attn_mod.mla_decode(p["attn"], h, leaves["ckv"][i],
+                                      leaves["kr"][i], pos, cfg)
+    else:
+        h, _, _ = attn_mod.attention_decode(p["attn"], h, leaves["k"][i],
+                                            leaves["v"][i], pos, cfg,
+                                            kind=blk.kind)
     if "post_attn" in p:
         h = apply_norm(p["post_attn"], h, cfg)
     x = x + h
-    h = mlp(p["mlp"], apply_norm(p["pre_mlp"], x, cfg), cfg)
+    h, _ = apply_mlp(p["mlp"], apply_norm(p["pre_mlp"], x, cfg), cfg,
+                     blk.moe)
     if "post_mlp" in p:
         h = apply_norm(p["post_mlp"], h, cfg)
     return x + h
@@ -56,14 +70,14 @@ def decode_step(params, cache, token, cfg):
     """token: (B, 1) int. Returns (logits (B, V_padded), cache): the same
     cache, written in place at ``pos``, with ``pos`` advanced by one."""
     pos = cache["pos"]
-    n_units, blocks = _unit_structure(cfg)
     x = embed(params, token, cfg)
-    for i in range(n_units):
-        up = unit(params["units"], i)
-        for key, kind in blocks:
-            kv = cache["units"][key]
-            x = _block_decode(up[key], x, kv["k"][i], kv["v"][i], pos, cfg,
-                              kind)
+    for pkey, ckey, n, blocks in stacks(cfg):
+        for i in range(n):
+            up = unit(params[pkey], i)
+            for blk in blocks:
+                x = _block_decode(block_params(up, blk), x,
+                                  block_cache(cache, ckey, blk), i, pos, cfg,
+                                  blk)
     cache["pos"] = pos + 1
     xl = apply_norm(params["final_norm"], x, cfg)
     return _lm_logits(params, xl, cfg)[:, 0], cache

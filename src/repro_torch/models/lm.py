@@ -1,12 +1,13 @@
-# repro: quarantine -- growth-seed LM serving path (the dense and vlm families); nothing in the battery system imports it
-"""Model assembly, dense and vlm families (port of ``repro/models/lm.py``).
+# repro: quarantine -- growth-seed LM serving path (the dense, vlm and moe families); nothing in the battery system imports it
+"""Model assembly, dense, vlm and moe families (port of
+``repro/models/lm.py``).
 
 Public surface:
   model_spec(cfg)                           -> param Spec tree
   init_params(cfg, seed, device=None)       -> materialized params
   forward(params, tokens, cfg)              -> (logits (B, S, V_padded), aux)
   init_cache(cfg, batch, max_seq, ...)      -> decode cache
-  count_params(cfg)                         -> int (shape-only)
+  count_params(cfg, active_only=False)      -> int (shape-only)
 
 Weights carry a leading unit dim (the reference's scan-over-layers
 layout); the layer scan is a Python loop over it. A unit holds one block
@@ -19,24 +20,32 @@ does, adds post-norms on each block's attention and MLP outputs
 (``post_block_norm``) and softcaps the final logits. The vlm family
 (chameleon) runs as dense, as in the reference: its ``fused`` frontend
 takes token ids over the fused text and image vocabulary, so there is
-no frontend code. Other families and frontends raise
-``NotImplementedError`` (ROADMAP.md, queue 1 item 4).
+no frontend code. The moe family (granite-moe, deepseek-v2) stacks
+``moe.first_dense_layers`` dense blocks (``head_blocks``, their MLP
+``moe.d_ff_dense`` wide) before ``units`` of one ``blk`` whose MLP is the
+MoE layer; its attention is MLA where ``cfg.mla`` is set, GQA otherwise,
+and its forward returns the sum of the MoE layers' aux losses. Other
+families and frontends raise ``NotImplementedError`` (ROADMAP.md, queue
+1 item 4).
 """
 from __future__ import annotations
 
+import collections
+import math
 from typing import Any, Dict
 
 import torch
 
 from repro_torch.common.device import resolve_device
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import act_fn, apply_norm, norm_spec, softcap
 from repro_torch.models.mlp import mlp, spec_mlp
 from repro_torch.models.params import (P, count_spec_params, init_from_spec,
-                                       stack_spec, tree_map)
+                                       leaves, stack_spec, tree_map)
 
 
-FAMILIES = ("dense", "vlm")
+FAMILIES = ("dense", "vlm", "moe")
 FRONTENDS = ("tokens", "fused")
 
 
@@ -49,15 +58,18 @@ def _check_ported(cfg):
         raise NotImplementedError(
             f"frontend {cfg.frontend!r} ({cfg.arch_id}) is not ported yet: "
             f"only {FRONTENDS} are (see ROADMAP.md, queue 1 item 4)")
+    if cfg.family == "moe" and cfg.moe is None:
+        raise ValueError(f"{cfg.arch_id}: the moe family needs cfg.moe")
     act_fn(cfg.act)
 
 
-def _spec_attn_block(cfg):
+def _spec_attn_block(cfg, use_moe=False, d_ff=None, use_mla=False):
     spec = {
         "pre_attn": norm_spec(cfg.d_model),
-        "attn": attn_mod.spec_attention(cfg),
+        "attn": (attn_mod.spec_mla(cfg) if use_mla
+                 else attn_mod.spec_attention(cfg)),
         "pre_mlp": norm_spec(cfg.d_model),
-        "mlp": spec_mlp(cfg),
+        "mlp": moe_mod.spec_moe(cfg) if use_moe else spec_mlp(cfg, d_ff),
     }
     if cfg.post_block_norm:
         spec["post_attn"] = norm_spec(cfg.d_model)
@@ -80,6 +92,33 @@ def _unit_structure(cfg):
     return n_units, [("blk", "global")]
 
 
+# one block of a stack: its key in a unit's parameters and in the stack's
+# cache (None: the unit's tree, the stack's cache dict itself), its
+# attention kind, and whether it runs MLA and the MoE layer
+Block = collections.namedtuple("Block", "param cache kind mla moe")
+
+
+def stacks(cfg):
+    """The stacked layer groups in the order they run: (params key,
+    cache key, number of units, [Block, ...] of a unit). Dense and vlm:
+    ``units`` of ``_unit_structure``'s blocks. moe: ``head_blocks`` (the
+    leading dense layers, cache ``head``), then ``units`` of one MoE
+    ``blk``; the reference's caches of both hold the block's leaves
+    directly."""
+    if cfg.family == "moe":
+        m, mla = cfg.moe, cfg.mla is not None
+        out = []
+        if m.first_dense_layers:
+            out.append(("head_blocks", "head", m.first_dense_layers,
+                        [Block(None, None, "global", mla, False)]))
+        out.append(("units", "units", cfg.n_layers - m.first_dense_layers,
+                    [Block("blk", None, "global", mla, True)]))
+        return out
+    n_units, blocks = _unit_structure(cfg)
+    return [("units", "units", n_units,
+             [Block(key, key, kind, False, False) for key, kind in blocks])]
+
+
 def model_spec(cfg) -> Dict[str, Any]:
     _check_ported(cfg)
     d = cfg.d_model
@@ -89,9 +128,11 @@ def model_spec(cfg) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         spec["lm_head"] = P((d, cfg.padded_vocab), ("embed", "vocab"))
-    n_units, blocks = _unit_structure(cfg)
-    spec["units"] = stack_spec({key: _spec_attn_block(cfg)
-                                for key, _ in blocks}, n_units)
+    for pkey, _, n, blocks in stacks(cfg):
+        d_ff = cfg.moe.d_ff_dense if pkey == "head_blocks" else None
+        specs = {b.param: _spec_attn_block(cfg, b.moe, d_ff, b.mla)
+                 for b in blocks}
+        spec[pkey] = stack_spec(specs.get(None, specs), n)
     return spec
 
 
@@ -111,8 +152,20 @@ def init_params(cfg, seed: int = 0, device=None):
     return init_from_spec(model_spec(cfg), gen, _pdtype(cfg), dev)
 
 
-def count_params(cfg) -> int:
-    return count_spec_params(model_spec(cfg))
+def count_params(cfg, active_only: bool = False) -> int:
+    """Parameters of ``cfg`` from its spec's shapes. ``active_only``
+    counts a routed expert's leaves (axis ``experts``) at
+    ``top_k / n_experts``, truncated per leaf, as the reference does."""
+    spec = model_spec(cfg)
+    if not active_only or cfg.moe is None:
+        return count_spec_params(spec)
+    m = cfg.moe
+    frac = m.top_k / m.n_experts if m.n_experts else 1.0
+    total = 0
+    for p in leaves(spec):
+        n = math.prod(p.shape)
+        total += int(n * frac) if "experts" in p.axes else n
+    return total
 
 
 def unit(stacked, i):
@@ -128,31 +181,63 @@ def embed(params, tokens, cfg):
     return x
 
 
-def apply_attn_block(p, x, cfg, kind="global"):
-    """One pre-norm block on the full sequence, with post-norms where the
-    block has them; returns (x, (k, v))."""
-    h, kv = attn_mod.attention(p["attn"], apply_norm(p["pre_attn"], x, cfg),
-                               cfg, kind=kind, return_kv=True)
+def block_params(up, blk):
+    """A block's parameters within its unit ``up``."""
+    return up if blk.param is None else up[blk.param]
+
+
+def block_cache(cache, ckey, blk):
+    """A block's cache leaves: the stack's cache dict or its entry."""
+    return cache[ckey] if blk.cache is None else cache[ckey][blk.cache]
+
+
+def apply_mlp(p, h, cfg, use_moe):
+    """The block's MLP on normed ``h`` -> (out, aux): the MoE layer and
+    its aux loss, or the dense MLP and None."""
+    if use_moe:
+        return moe_mod.moe(p, h, cfg)
+    return mlp(p, h, cfg), None
+
+
+def apply_attn_block(p, x, cfg, blk):
+    """One pre-norm block of kind ``blk`` on the full sequence, with
+    post-norms where the block has them; returns (x, cache leaves, aux):
+    ``{"k", "v"}`` after rope (GQA) or ``{"ckv", "kr"}`` (MLA), and the
+    MoE layer's aux loss (None for a dense MLP)."""
+    h = apply_norm(p["pre_attn"], x, cfg)
+    if blk.mla:
+        h, (ckv, kr) = attn_mod.mla_attention(p["attn"], h, cfg,
+                                              return_cache=True)
+        kv = {"ckv": ckv, "kr": kr}
+    else:
+        h, (k, v) = attn_mod.attention(p["attn"], h, cfg, kind=blk.kind,
+                                       return_kv=True)
+        kv = {"k": k, "v": v}
     if "post_attn" in p:
         h = apply_norm(p["post_attn"], h, cfg)
     x = x + h
-    h = mlp(p["mlp"], apply_norm(p["pre_mlp"], x, cfg), cfg)
+    h, aux = apply_mlp(p["mlp"], apply_norm(p["pre_mlp"], x, cfg), cfg,
+                       blk.moe)
     if "post_mlp" in p:
         h = apply_norm(p["post_mlp"], h, cfg)
-    return x + h, kv
+    return x + h, kv, aux
 
 
 def forward_hidden(params, tokens, cfg):
-    """tokens: (B, S) int -> (final-normed hidden (B, S, D), aux loss)."""
+    """tokens: (B, S) int -> (final-normed hidden (B, S, D), aux loss:
+    the sum of the MoE layers' aux losses, 0 without any)."""
     _check_ported(cfg)
-    n_units, blocks = _unit_structure(cfg)
     x = embed(params, tokens, cfg)
-    for i in range(n_units):
-        up = unit(params["units"], i)
-        for key, kind in blocks:
-            x, _ = apply_attn_block(up[key], x, cfg, kind)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for pkey, _, n, blocks in stacks(cfg):
+        for i in range(n):
+            up = unit(params[pkey], i)
+            for blk in blocks:
+                x, _, a = apply_attn_block(block_params(up, blk), x, cfg, blk)
+                if a is not None:
+                    aux = aux + a
     x = apply_norm(params["final_norm"], x, cfg)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, aux
 
 
 def forward(params, tokens, cfg):
@@ -171,15 +256,28 @@ def _lm_logits(params, x, cfg):
 
 
 def init_cache(cfg, batch: int, max_seq: int, dtype=None, device=None):
-    """The decode cache (zeros; prefill fills it): ``pos`` (an int) and,
-    per block key of a unit, k/v of shape (n_units, B, max_seq, K, dh) in
-    the compute dtype, on ``device`` (default ``cuda``)."""
+    """The decode cache (zeros; prefill fills it) in the compute dtype, on
+    ``device`` (default ``cuda``): ``pos`` (an int) and, per stack
+    (``units``; moe also ``head`` for its leading dense layers), its
+    blocks' leaves with a leading unit dim: GQA k/v (n, B, max_seq, K, dh)
+    (under each block key for dense and vlm, directly for moe, as in the
+    reference), MLA's latent ``ckv`` (n, B, max_seq, kv_lora_rank) and
+    rope key ``kr`` (n, B, max_seq, qk_rope_head_dim)."""
     _check_ported(cfg)
     dev = resolve_device(device)
     cdt = dtype or _cdtype(cfg)
-    n_units, blocks = _unit_structure(cfg)
-    shape = (n_units, batch, max_seq, cfg.n_kv_heads, cfg.head_dim_)
-    return {"pos": 0,
-            "units": {key: {"k": torch.zeros(shape, dtype=cdt, device=dev),
-                            "v": torch.zeros(shape, dtype=cdt, device=dev)}
-                      for key, _ in blocks}}
+
+    def leaves_of(n, blk):
+        if blk.mla:
+            dims = {"ckv": (cfg.mla.kv_lora_rank,),
+                    "kr": (cfg.mla.qk_rope_head_dim,)}
+        else:
+            dims = dict.fromkeys("kv", (cfg.n_kv_heads, cfg.head_dim_))
+        return {name: torch.zeros((n, batch, max_seq) + dim, dtype=cdt,
+                                  device=dev) for name, dim in dims.items()}
+
+    cache = {"pos": 0}
+    for _, ckey, n, blocks in stacks(cfg):
+        per = {blk.cache: leaves_of(n, blk) for blk in blocks}
+        cache[ckey] = per.get(None, per)
+    return cache

@@ -1,4 +1,4 @@
-# repro: quarantine -- growth-seed LM serving path (the dense and vlm families); nothing in the battery system imports it
+# repro: quarantine -- growth-seed LM serving path (the dense, vlm and moe families); nothing in the battery system imports it
 """Dense MLP: gated (SwiGLU or GeGLU by ``cfg.act``) or, with
 ``cfg.gated_mlp`` off, plain ``act(x w_in) w_out`` (nemotron's squared
 ReLU) (port of ``repro/models/mlp.py``). The matrix products are
@@ -22,8 +22,9 @@ def spec_mlp(cfg, d_ff=None):
 
 
 def mlp(p, x, cfg):
-    """x: (B, S, D) -> (B, S, D): ``act(x w_gate) * (x w_in)`` where the
-    block has a gate, else ``act(x w_in)``; then ``w_out``."""
+    """x: (..., D) -> (..., D): ``act(x w_gate) * (x w_in)`` where the
+    block has a gate, else ``act(x w_in)``; then ``w_out``. Weights with
+    a leading dim (the MoE layer's experts) batch over it."""
     act = act_fn(cfg.act)
     if "w_gate" in p:
         h = act(x @ p["w_gate"].to(x.dtype)) * (x @ p["w_in"].to(x.dtype))

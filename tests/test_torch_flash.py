@@ -361,3 +361,122 @@ def test_bar_wait_watchdog_fails_the_launch(cuda, tmp_path):
     print(f"bar_wait watchdog: {error} after {seconds:.3f} s")
     assert error != "cudaSuccess"
     assert 1.0 <= seconds < 10.0
+
+
+# -- a v head dim of its own (DeepSeek-V2's MLA: q and k 192 wide, v 128)
+
+# (B, S, H, K, dqk, dv): GQA and plain heads, MLA's 192/128 (the CUDA-core
+# route's (192, 128) instantiation), and a pair that instantiation does
+# not take (128/64: DV = DQK, v zero-filled past dv)
+SPLIT_DV_SHAPES = [(1, 256, 4, 4, 192, 128), (2, 256, 4, 2, 48, 32),
+                   (1, 200, 2, 2, 192, 128), (1, 128, 4, 1, 128, 64)]
+
+
+def _qkv_split(seed, b, s, h, kh, dqk, dv):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, s, h, dqk), dtype=np.float32),
+            rng.standard_normal((b, s, kh, dqk), dtype=np.float32),
+            rng.standard_normal((b, s, kh, dv), dtype=np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b,s,h,kh,dqk,dv", SPLIT_DV_SHAPES)
+def test_mha_split_dv_matches_reference_sdpa(b, s, h, kh, dqk, dv, dtype):
+    """``mha`` (and ``mha_ref`` under it) with v narrower than q and k
+    equals the reference's XLA attention (``repro.models.attention.sdpa``,
+    causal, in the model layout with positions), which is what its MLA
+    calls; the output has v's head dim. S = 200 is padded to 256."""
+    import jax.numpy as jnp
+    from repro.models.attention import sdpa
+    q, k, v = _qkv_split(s + dqk + dv, b, s, h, kh, dqk, dv)
+    scale = dqk ** -0.5
+    tq, tk, tv = (_torch(x, dtype) for x in (q, k, v))
+    got = mha(tq, tk, tv, scale=scale)
+    assert got.shape == (b, s, h, dv) and got.dtype == getattr(torch, dtype)
+    pos = jnp.arange(s)
+    want = sdpa(*(_jax(x, dtype) for x in (q, k, v)), pos, pos, "causal", 0,
+                scale, 0.0)
+    assert want.shape == got.shape
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=TOL[dtype])
+    if s % 128 == 0:
+        assert torch.equal(mha_ref(tq, tk, tv, scale=scale), got)
+
+
+def test_launcher_passes_dv_after_dh(monkeypatch):
+    """A call with dv != dh takes the CUDA-core route, also at bfloat16
+    dh 64 and 128 where dv = dh takes the tensor cores; ``args[10]`` stays
+    dh, dv is ``args[11]``, right after it, and ``window`` stays the
+    argument before the stream; the output is (B, S, H, dv), the 8-field
+    ``calls`` key is unchanged and ``split_dv`` counts the call. No
+    kernel is built: ``_entry`` is stubbed, and the CPU tensors pass for
+    CUDA ones."""
+    asked = []
+
+    def entry(kind):
+        def fn(*args):
+            asked.append((kind, args[0], args[10], args[-2], args[11]))
+            return 0
+        return fn
+    monkeypatch.setattr(fk, "_entry", entry)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(fk.flash_attention, "launches", 0)
+    monkeypatch.setattr(fk.flash_attention, "calls", collections.Counter())
+    monkeypatch.setattr(fk.flash_attention, "split_dv", 0)
+    cases = [(torch.bfloat16, 192, 128, 0, "simt"),
+             (torch.float32, 192, 128, 0, "simt"),
+             (torch.bfloat16, 128, 64, 300, "simt"),
+             (torch.bfloat16, 64, 32, 0, "simt"),
+             (torch.bfloat16, 128, 128, 0, "wgmma")]
+    for i, (dtype, dh, dv, window, want) in enumerate(cases):
+        assert fk.route(dtype, dh, dv) == want
+        q = torch.zeros((1, 128, 4, dh), dtype=dtype)
+        k = torch.zeros((1, 128, 2, dh), dtype=dtype)
+        v = torch.zeros((1, 128, 2, dv), dtype=dtype)
+        o = fk.flash_attention(q, k, v, scale=1.0, window=window)
+        assert o.shape == (1, 128, 4, dv) and o.dtype == dtype
+        assert asked[-1] == (want, fk.DTYPES[dtype], dh, window, dv)
+        assert fk.flash_attention.calls[
+            (1, 128, 128, 4, 2, dh, str(dtype), want)] == 1
+        assert fk.flash_attention.split_dv == min(i + 1, 4)
+    assert fk.route(torch.bfloat16, 64) == "wgmma"
+    assert fk.flash_attention.launches == len(cases)
+
+
+def test_launcher_refuses_a_v_that_does_not_fit():
+    """dv above q's and k's head dim, and a v that differs from k in B, T
+    or K, are refused before any build or launch."""
+    launches = fk.flash_attention.launches
+    q = torch.zeros((1, 128, 4, 128))
+    k = torch.zeros((1, 128, 2, 128))
+    bad = {"dv above dh": torch.zeros((1, 128, 2, 192)),
+           "B": torch.zeros((2, 128, 2, 64)),
+           "T": torch.zeros((1, 256, 2, 64)),
+           "K": torch.zeros((1, 128, 4, 64))}
+    for what, v in bad.items():
+        with pytest.raises(ValueError, match="do not fit"):
+            fk.flash_attention(q, k, v, scale=1.0)
+    assert fk.flash_attention.launches == launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b,s,h,kh,dqk,dv", [
+    (1, 1024, 128, 128, 192, 128),              # deepseek-v2's MLA heads
+    (1, 1000, 128, 128, 192, 128),              # padded
+    (2, 256, 4, 2, 48, 32)])
+def test_split_dv_kernel_matches_plain_on_card(cuda, b, s, h, kh, dqk, dv,
+                                               dtype):
+    q, k, v = (_torch(x, dtype).to(cuda)
+               for x in _qkv_split(s, b, s, h, kh, dqk, dv))
+    before = (fk.flash_attention.launches, fk.flash_attention.split_dv)
+    got = mha(q, k, v, scale=dqk ** -0.5)
+    torch.cuda.synchronize()
+    assert (fk.flash_attention.launches,
+            fk.flash_attention.split_dv) == (before[0] + 1, before[1] + 1)
+    want = mha_ref(q, k, v, scale=dqk ** -0.5)
+    assert got.shape == want.shape == (b, s, h, dv)
+    assert float((got.float() - want.float()).abs().max()) <= TOL[dtype]

@@ -213,14 +213,14 @@ def test_config_and_param_count_match_reference():
 def test_unported_architectures_and_paths_raise():
     """What stays unported raises: an architecture of another family
     (zamba2), an activation no ported config uses (whisper's plain GELU),
-    the MoE family, whisper's ``frames`` frontend, bidirectional and
-    cross attention."""
+    zamba2's hybrid family, whisper's ``frames`` frontend, bidirectional
+    and cross attention."""
     with pytest.raises(KeyError, match="not ported yet"):
         get_config("zamba2-1.2b")
     with pytest.raises(KeyError, match="unknown"):
         get_config("gpt-2")
     cfg = get_reduced(ARCH)
-    for other in (dataclasses.replace(cfg, family="moe"),
+    for other in (dataclasses.replace(cfg, family="hybrid"),
                   dataclasses.replace(cfg, act="gelu_plain"),
                   dataclasses.replace(cfg, frontend="frames")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
