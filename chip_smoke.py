@@ -176,6 +176,24 @@ Phases, one line each (details in ``reports/chip_smoke/chip_smoke.json``):
    prompt (granite at full depth, deepseek at 2 layers), the router's
    least top-k margin per step printed before a failure. Each model is
    freed before the next is built.
+16. (run right after phase 15) zamba2-1.2b and xlstm-1.3b on the card:
+   the kernel alone at zamba2's prefill attention shape (1 x 4096, 32
+   heads on 32, dh 64, ``wgmma``) against its plain version, timed
+   beside its bound and ``scaled_dot_product_attention`` with the sdpa
+   backend that took the call; then both at full width and depth in
+   bfloat16 parameters (2.34 and 4.04 GB), 1 x 4096 with 16 greedy
+   tokens and 4 x 512 with 32: 7 flash-attention launches per zamba2
+   prefill (its shared block before each of 6 groups of 6 Mamba-2 layers
+   and before the tail of 2), all ``wgmma``, none for xlstm (no
+   attention); one profiled prefill and decode step each (xlstm's 4 x 512
+   prefill, device activity alone); then float32: zamba2 at full depth on
+   a 1 x 1000 prompt (chunks of 8) with 8 greedy tokens through the
+   kernel and the plain version, xlstm at full width and 8 layers on a 1
+   x 256 prompt with 4 tokens on the card and on the CPU (logits within
+   SERVE_LOGITS_ATOL, tokens equal); and for both, ``decode_step`` after
+   ``prefill(255)`` (chunks of 1) against ``prefill(256)`` (chunks of
+   128). Each model is freed before the next is built; the phase's
+   seconds are printed.
 
 Phase 3 times every kernel at the shapes the main paths gave it (BigCrush
 for the battery kernels and mwc, phase 6 for flash attention).
@@ -183,11 +201,12 @@ for the battery kernels and mwc, phase 6 for flash attention).
 Any failure raises, and the script exits non-zero without a result line;
 the traceback and ``nvidia-smi -q`` go to ``reports/chip_smoke/chip_smoke_failure.txt``.
 The kernels' JSON adds each kernel's launches in phases 8, 9, 10, 11,
-13, 14 and 15 (``launches_captured_bigcrush``, ``launches_campaign``,
-``launches_elastic_faults``, ``launches_serve``, ``launches_gemma2``,
-``launches_dense_archs``, ``launches_moe``)
-beside those of the main path. The last three lines are the kernels' JSON, the card, and
-``{"ok": true, "device": {...}}``.
+13, 14, 15 and 16 (``launches_captured_bigcrush``,
+``launches_campaign``, ``launches_elastic_faults``, ``launches_serve``,
+``launches_gemma2``, ``launches_dense_archs``, ``launches_moe``,
+``launches_recurrent``) beside those of the main path. The last three
+lines are the kernels' JSON, the card, and ``{"ok": true, "device":
+{...}}``.
 """
 import contextlib
 import dataclasses
@@ -377,6 +396,34 @@ MOE_FA = [("deepseek-v2-236b", (1, 4096, 128, 128, 192, 0.0, "bfloat16",
                                 128)),
           ("granite-moe-1b-a400m", (1, 4096, 16, 8, 64, 0.0, "bfloat16",
                                     64))]
+# phase 16: the recurrent families at full width and depth in bfloat16
+# parameters (zamba2-1.2b 2.34 GB, xlstm-1.3b 4.04 GB): the
+# flash-attention launches a prefill must make (zamba2's shared block, 7
+# applications: 38 = 6 x 6 + a tail of 2; xlstm has no attention), the
+# request whose prefill is profiled (xlstm: the 4 x 512 one, device
+# activity alone, since its 1 x 4096 prefill is ~0.5 M kernels), and
+# (batch, prompt length, generated tokens) of each request; each request
+# is warmed up on its first RECURRENT_WARMUP_LEN tokens (chunks of 128,
+# as at 4096)
+RECURRENT_WARMUP_LEN = 512
+RECURRENT_ARCHS = {
+    "zamba2-1.2b": (7, (1, 4096), [(1, 4096, 16), (4, 512, 32)]),
+    "xlstm-1.3b": (0, (4, 512), [(1, 4096, 16), (4, 512, 32)]),
+}
+# zamba2's prefill attention at phase 16's 4096-token prompt, the kernel
+# alone: (B, S, H, K, dh, softcap, dtype)
+RECURRENT_FA = [("zamba2-1.2b", (1, 4096, 32, 32, 64, 0.0, "bfloat16"))]
+# float32 parity: zamba2 at full depth, kernel against plain, a 1 x 1000
+# prompt (chunks of 8) and 8 greedy tokens; xlstm (no kernel) on the card
+# against the CPU at full width and 8 layers (one superblock), a 1 x 256
+# prompt and 4 tokens
+ZAMBA2_PARITY = (1, 1000, 8)
+XLSTM_PARITY_LAYERS = 8
+XLSTM_PARITY = (1, 256, 4)
+# the chunked form against the recurrent one, float32: decode_step after
+# prefill(L) against prefill(L + 1); L = 255 prefills in chunks of 1, L +
+# 1 = 256 in chunks of 128
+STEP_VS_CHUNK_LEN = 255
 # (batch, prompt length, generated tokens) of the serve phase
 SERVE = [(4, 512, 64), (2, 2048, 16)]
 # float32 serve parity, kernel vs plain: last-position logits are O(1)
@@ -2232,20 +2279,22 @@ def gemma2_phase(card):
     return out
 
 
-def profile_serving(tag, params, cfg, run, prompts):
+def profile_serving(tag, params, cfg, run, prompts, cpu=True):
     """One profiled prefill of ``prompts`` and one decode step after it:
     device busy ms, idle share against the run's unprofiled times, flash
-    attention's device ms, the top kernels (printed under ``tag``)."""
+    attention's device ms, the top kernels (printed under ``tag``).
+    ``cpu=False`` traces the device alone (``device_busy``)."""
     from repro_torch.models.decode import decode_step, prefill
     state = {}
 
     def prof_prefill():
         state["out"] = prefill(params, prompts, cfg,
                                max_seq=run["prompt_len"] + 2)
-    profiles = {"prefill": (device_busy(prof_prefill), run["prefill_ms"])}
+    profiles = {"prefill": (device_busy(prof_prefill, cpu=cpu),
+                            run["prefill_ms"])}
     logits, cache = state.pop("out")
     profiles["decode step"] = (device_busy(lambda: decode_step(
-        params, cache, logits.argmax(-1, keepdim=True), cfg)),
+        params, cache, logits.argmax(-1, keepdim=True), cfg), cpu=cpu),
         run["decode_ms_per_step"])
     del logits, cache
     out = {}
@@ -2628,6 +2677,204 @@ def moe_phase(card):
               f"margin {min(margins[0]):.3g}", flush=True)
         del params
         torch.cuda.empty_cache()
+        out["archs"][arch] = rec
+    return out
+
+
+def step_vs_chunk(params, cfg, prompts):
+    """Max |decode_step after prefill(L) - prefill(L + 1)| over the last
+    logits, for the (B, L + 1) ``prompts``: the recurrent form against the
+    chunked one."""
+    from repro_torch.models.decode import decode_step, prefill
+    n = prompts.shape[1] - 1
+    _, cache = prefill(params, prompts[:, :n], cfg, max_seq=n + 1)
+    got, _ = decode_step(params, cache, prompts[:, n:], cfg)
+    want, _ = prefill(params, prompts, cfg)
+    return float((got.float() - want.float()).abs().max())
+
+
+def recurrent_phase(card):
+    """Phase 16: zamba2-1.2b and xlstm-1.3b on the card, weights from
+    seed 0, each model freed before the next is built.
+
+    (a) The kernel alone at zamba2's prefill attention shape
+    (RECURRENT_FA: 32 heads on 32, dh 64, ``wgmma``), through ``fa_case``:
+    against ``mha_ref`` within FA_ATOL, per-call and device ms, the
+    operations bound, ``scaled_dot_product_attention``'s time and the
+    backend that took it.
+    (b) Each arch at full width and depth with bfloat16 parameters,
+    compute bfloat16: RECURRENT_ARCHS' requests, each after a warm-up at
+    its batch on its first RECURRENT_WARMUP_LEN tokens; zamba2's prefill launches flash attention 7 times, all on
+    ``wgmma`` at dh 64, xlstm's no kernel at all; prefill ms, decode ms
+    per step, tokens/s, peak memory; one profiled prefill and decode step.
+    Launch counts are zeroed just before each measured request and read
+    just after.
+    (c) Float32 parameters and compute: zamba2 at full depth, the
+    ZAMBA2_PARITY prompt greedy through the kernel and with the model's
+    attention rebound to the plain version, last-position logits within
+    SERVE_LOGITS_ATOL and every token equal; xlstm at full width and
+    XLSTM_PARITY_LAYERS layers, the XLSTM_PARITY prompt greedy on the card
+    and on the CPU from the same weights, the same checks.
+    (d) Float32: ``decode_step`` after ``prefill(STEP_VS_CHUNK_LEN)``
+    against ``prefill(STEP_VS_CHUNK_LEN + 1)``'s last logits within
+    SERVE_LOGITS_ATOL (zamba2 at full depth, xlstm at its parity
+    depth)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.lm import init_params
+    from repro_torch.models.params import leaves, tree_map
+    flash = _kernel_fns()["flash_attention"]
+    out = {"launches": {name: 0 for name in _kernel_fns()},
+           "attention": [], "archs": {}}
+    torch.cuda.empty_cache()
+    for arch, shape in RECURRENT_FA:
+        c = fa_case(*shape, seed=7, name_sdpa=True)
+        c["arch"] = arch
+        out["attention"].append(c)
+        print_fa(c)
+        torch.cuda.empty_cache()
+
+    for arch, (n_fa, prof_shape, requests) in RECURRENT_ARCHS.items():
+        t_arch = time.perf_counter()
+        base = get_config(arch)
+        cfg = dataclasses.replace(base, param_dtype="bfloat16")
+        rec = {"layers": cfg.n_layers, "n_params": cfg.n_params(),
+               "runs": []}
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=0)
+        torch.cuda.synchronize()
+        rec["init_s"] = time.perf_counter() - t0
+        rec["param_bytes"] = sum(p.numel() * p.element_size()
+                                 for p in leaves(params))
+        blocks = (f"Mamba-2 d_state {cfg.ssm.d_state} head_dim "
+                  f"{cfg.ssm.head_dim}, shared attention+MLP every "
+                  f"{cfg.shared_attn_every} ({cfg.n_heads}H dh "
+                  f"{cfg.head_dim_}, ff {cfg.d_ff} {cfg.act})"
+                  if cfg.family == "hybrid" else
+                  f"mLSTM:sLSTM {cfg.xlstm.slstm_every - 1}:1, {cfg.n_heads} "
+                  f"heads, proj {cfg.xlstm.proj_factor_m}")
+        print(f"[recurrent] {arch} at full width and depth, {cfg.n_layers} "
+              f"layers (d{cfg.d_model}, {blocks}; vocab {cfg.vocab_size}): "
+              f"{rec['n_params']} bfloat16 parameters ({rec['param_bytes']} "
+              f"B) from seed 0 on cuda in {rec['init_s']:.2f}s | {card}",
+              flush=True)
+        prompts_by_shape = {}
+        for i, (batch, plen, gen) in enumerate(requests):
+            prompts = prompts_for(cfg, batch, plen, seed=700 + i)
+            prompts_by_shape[(batch, plen)] = prompts
+            # warm-up at this batch and chunk length (xlstm's 4096-token
+            # prefill is seconds of host time, so not at its full length)
+            greedy(params, prompts[:, :RECURRENT_WARMUP_LEN], cfg, 2)
+            zero_counts()
+            torch.cuda.reset_peak_memory_stats()
+            first, toks, t_pre, t_dec = greedy(params, prompts, cfg, gen)
+            launches = launch_counts()
+            fa = fa_launches(flash)
+            dhs = sorted({key[5] for key in flash.calls})
+            want = {"launches": n_fa, "windowed": 0,
+                    "routes": {"wgmma": n_fa} if n_fa else {}}
+            check(fa == want and dhs == ([cfg.head_dim_] if n_fa else [])
+                  and sum(launches.values()) == n_fa,
+                  f"{arch} {batch}x{plen}: kernel launches {launches}, "
+                  f"flash attention {fa} at dh {dhs}; want {want}")
+            for name, n in launches.items():
+                out["launches"][name] += n
+            run = {"batch": batch, "prompt_len": plen, "gen_len": gen,
+                   "prefill_ms": t_pre * 1e3,
+                   "decode_ms_per_step": t_dec * 1e3 / (gen - 1),
+                   "tokens_per_s": batch * gen / (t_pre + t_dec),
+                   "prefill_tokens_per_s": batch * plen / t_pre,
+                   "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                   "flash": fa, "tokens": toks.tolist()}
+            rec["runs"].append(run)
+            print(f"[recurrent] {arch} {batch} x {plen}-token prompts, {gen} "
+                  f"greedy tokens each: prefill {run['prefill_ms']:.2f} ms, "
+                  f"decode {run['decode_ms_per_step']:.3f} ms/token (one per "
+                  f"request per step), {run['tokens_per_s']:.2f} generated "
+                  f"tokens/s, max_memory_allocated "
+                  f"{run['max_memory_allocated']} B, flash_attention "
+                  f"{fa['launches']} launches by route {fa['routes']}",
+                  flush=True)
+        run = next(r for r in rec["runs"]
+                   if (r["batch"], r["prompt_len"]) == prof_shape)
+        rec["profile"] = profile_serving(
+            "recurrent", params, cfg, run, prompts_by_shape[prof_shape],
+            cpu=bool(n_fa))
+        rec["profile_shape"] = list(prof_shape)
+        del params, prompts_by_shape
+        torch.cuda.empty_cache()
+
+        # (c) float32 parity; (d) the recurrent form against the chunked
+        check(not torch.backends.cuda.matmul.allow_tf32,
+              "TF32 matmuls are on: float32 parity needs full float32")
+        layers = base.n_layers if n_fa else XLSTM_PARITY_LAYERS
+        cfg32 = dataclasses.replace(base, n_layers=layers,
+                                    param_dtype="float32",
+                                    compute_dtype="float32")
+        params = init_params(cfg32, seed=0)
+        batch, plen, gen = ZAMBA2_PARITY if n_fa else XLSTM_PARITY
+        prompts = prompts_for(cfg32, batch, plen, seed=800)
+        zero_counts()
+        k_first, k_toks, k_pre, _ = greedy(params, prompts, cfg32, gen)
+        fa = fa_launches(flash)
+        check(fa == {"launches": n_fa, "windowed": 0,
+                     "routes": {"simt": n_fa} if n_fa else {}},
+              f"{arch} float32 parity: flash-attention launches {fa}")
+        if n_fa:
+            other = "the plain version"
+            kernel_mha = attn_mod.mha
+            attn_mod.mha = mha_ref
+            try:
+                zero_counts()
+                p_first, p_toks, p_pre, _ = greedy(params, prompts, cfg32,
+                                                   gen)
+                check(launch_counts()["flash_attention"] == 0,
+                      f"the plain {arch} run launched the kernel")
+            finally:
+                attn_mod.mha = kernel_mha
+        else:
+            other = "the CPU"
+            cpu_params = tree_map(lambda a: a.cpu(), params)
+            t0 = time.perf_counter()
+            p_first, p_toks, _, _ = greedy(cpu_params, prompts.cpu(), cfg32,
+                                           gen)
+            p_pre = time.perf_counter() - t0
+            del cpu_params
+        logit_err = float((k_first.cpu() - p_first.cpu()).abs().max())
+        check(logit_err <= SERVE_LOGITS_ATOL,
+              f"{arch} float32: last-position logits against {other} "
+              f"differ by {logit_err} > {SERVE_LOGITS_ATOL}")
+        check(torch.equal(k_toks.cpu(), p_toks.cpu()),
+              f"{arch} float32: greedy tokens differ from {other}'s")
+        step_prompts = prompts_for(cfg32, 2, STEP_VS_CHUNK_LEN + 1, seed=801)
+        step_err = step_vs_chunk(params, cfg32, step_prompts)
+        check(step_err <= SERVE_LOGITS_ATOL,
+              f"{arch} float32: decode_step after prefill("
+              f"{STEP_VS_CHUNK_LEN}) differs from prefill("
+              f"{STEP_VS_CHUNK_LEN + 1}) by {step_err} > "
+              f"{SERVE_LOGITS_ATOL}")
+        rec["parity"] = {
+            "layers": layers, "against": other, "prompt": [batch, plen],
+            "gen": gen, "float32_logits_max_abs_err": logit_err,
+            "atol": SERVE_LOGITS_ATOL, "float32_tokens_equal": True,
+            "float32_flash": fa,
+            "float32_prefill_s": {"card": k_pre, "other": p_pre},
+            "step_vs_chunk": {"prompt": [2, STEP_VS_CHUNK_LEN + 1],
+                              "max_abs_err": step_err}}
+        print(f"[recurrent parity] {arch}, {layers} layers at full width, "
+              f"float32 parameters and compute, {batch} x {plen}-token "
+              f"prompt, {gen} greedy tokens: equal on the card "
+              f"({fa['launches']} flash-attention launches on "
+              f"{fa['routes']}) and with {other}; last-position logits max "
+              f"|diff| {logit_err:.3g} <= {SERVE_LOGITS_ATOL} | decode_step "
+              f"after prefill({STEP_VS_CHUNK_LEN}) against prefill("
+              f"{STEP_VS_CHUNK_LEN + 1}), 2 prompts: max |diff| "
+              f"{step_err:.3g} <= {SERVE_LOGITS_ATOL}", flush=True)
+        del params
+        torch.cuda.empty_cache()
+        rec["seconds"] = time.perf_counter() - t_arch
         out["archs"][arch] = rec
     return out
 
@@ -3108,6 +3355,11 @@ def main():
     t0 = time.perf_counter()
     details["moe"] = moe_phase(card)
     t_moe = time.perf_counter() - t0
+    # 16. zamba2-1.2b, xlstm-1.3b (after phase 15's are freed)
+    t0 = time.perf_counter()
+    details["recurrent"] = recurrent_phase(card)
+    t_rec = time.perf_counter() - t0
+    print(f"[time] phase 16 (zamba2, xlstm) {t_rec:.1f}s", flush=True)
 
     # 8-9. captured bitstreams and a generator-fleet campaign, at full size
     tmp = tempfile.mkdtemp(prefix="chip_smoke_capture_")
@@ -3139,16 +3391,18 @@ def main():
     details["phase_s"] = {"captured": t1 - t0, "campaign": t2 - t1,
                           "elastic_faults": t3 - t2, "screening": t4 - t3,
                           "analysis": t5 - t4, "gemma2": t_gemma2,
-                          "dense_archs": t_dense, "moe": t_moe}
+                          "dense_archs": t_dense, "moe": t_moe,
+                          "recurrent": t_rec}
     print(f"[time] phase 8 (captured) {t1 - t0:.1f}s, phase 9 (campaign) "
           f"{t2 - t1:.1f}s, phase 10 (elastic, faults) {t3 - t2:.1f}s, "
           f"phase 11 (screening) {t4 - t3:.1f}s, phase 12 (analysis) "
           f"{t5 - t4:.1f}s, phase 13 (gemma2, run after phase 7) "
           f"{t_gemma2:.1f}s, phase 14 (glm4, chameleon, nemotron, after "
           f"13) {t_dense:.1f}s, phase 15 (granite-moe, deepseek-v2, after "
-          f"14) {t_moe:.1f}s, "
-          f"{t0 - t_start - t_gemma2 - t_dense - t_moe:.1f}s before phase 8 "
-          f"besides them", flush=True)
+          f"14) {t_moe:.1f}s, phase 16 (zamba2, xlstm, after 15) "
+          f"{t_rec:.1f}s, "
+          f"{t0 - t_start - t_gemma2 - t_dense - t_moe - t_rec:.1f}s before "
+          f"phase 8 besides them", flush=True)
 
     # the kernels at the shapes their main paths gave them
     main_calls = calls["bigcrush"]
@@ -3206,11 +3460,13 @@ def main():
             "launches_dense_archs":
                 details["dense_archs"]["launches"][name],
             "launches_moe": details["moe"]["launches"][name],
+            "launches_recurrent": details["recurrent"]["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in
                                cases + details["parity"][name]
                                + (details["gemma2_attention"]
                                   + details["dense_archs"]["attention"]
                                   + details["moe"]["attention"]
+                                  + details["recurrent"]["attention"]
                                   if name == "flash_attention" else [])),
             "ms": total("ms"), "device_ms": total("device_ms"),
             "plain_ms": total("plain_ms"),

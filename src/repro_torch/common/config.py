@@ -1,14 +1,15 @@
-# repro: quarantine -- growth-seed LM serving path (the dense, vlm and moe families); nothing in the battery system imports it
+# repro: quarantine -- growth-seed LM serving path (the dense, vlm, moe, ssm and hybrid families); nothing in the battery system imports it
 """Model configuration of the LM serving path (from the reference's
-``repro/common/config.py``: ``pad_to``, ``MoEConfig``, ``MLAConfig`` and
-the fields of ``ModelConfig`` that the port reads).
+``repro/common/config.py``: ``pad_to``, ``MoEConfig``, ``MLAConfig``,
+``SSMConfig``, ``XLSTMConfig`` and the 31 of ``ModelConfig``'s 38 fields
+that the port reads).
 
-The reference's other fields describe families, modalities and training
-knobs the port does not run yet (SSM, xLSTM, whisper's encoder-decoder,
-zamba2's shared attention, remat, Adam's dtype, scan groups, gradient
-accumulation); each comes back in the slice that first reads it. Until
-then a configuration that needs one cannot be written here, so none is
-silently ignored.
+The reference's other 7 fields describe whisper's encoder-decoder
+(``is_encoder_decoder``, ``n_encoder_layers``, ``encoder_seq``) and
+training knobs (remat, Adam's dtype, scan groups, gradient accumulation)
+that the port does not run yet; each comes back in the slice that first
+reads it. Until then a configuration that needs one cannot be written
+here, so none is silently ignored.
 """
 from __future__ import annotations
 
@@ -44,9 +45,29 @@ class MLAConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 (SSD) block config."""
+    d_state: int = 64
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    chunk: int = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class XLSTMConfig:
+    slstm_every: int = 8               # 1 sLSTM per `slstm_every` blocks (7:1)
+    proj_factor_m: float = 2.0         # mLSTM up-projection factor
+    proj_factor_s: float = 4.0 / 3.0   # sLSTM FFN factor
+    conv_width: int = 4
+    chunk: int = 128                   # mLSTM chunkwise-parallel length
+
+
+@dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    family: str                        # dense | vlm (run as dense) | moe
+    # dense | vlm (run as dense) | moe | ssm (xlstm) | hybrid (zamba2)
+    family: str
     n_layers: int
     d_model: int
     n_heads: int
@@ -74,6 +95,11 @@ class ModelConfig:
 
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
+    ssm: Optional[SSMConfig] = None
+    xlstm: Optional[XLSTMConfig] = None
+
+    # hybrid (zamba2): one shared attn+MLP block applied every k ssm layers
+    shared_attn_every: int = 0
 
     # inputs: token ids, or (fused, vlm) ids over the fused text and image
     # vocabulary; the reference's "frames" (whisper) is not ported
@@ -91,6 +117,15 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         """Megatron-style vocab padding for clean TP sharding."""
         return pad_to(self.vocab_size, 128)
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def supports_long_context(self) -> bool:
+        """Sub-quadratic-history archs run the long_500k shape."""
+        return self.family in ("ssm", "hybrid")
 
     def n_params(self) -> int:
         """Parameter count from the port's own spec (shapes only)."""

@@ -2,11 +2,11 @@
 """Architecture registry: ``get_config(arch_id)`` / ``get_reduced(arch_id)``
 (port of ``repro/configs``).
 
-The dense, vlm and moe architectures are ported (qwen2-1.5b,
-gemma2-27b, glm4-9b, chameleon-34b, nemotron-4-340b,
-granite-moe-1b-a400m, deepseek-v2-236b). The reference's other
-architectures raise a ``KeyError`` that says so; ROADMAP.md (queue 1,
-item 4) lists them in the order they are to be ported.
+The dense, vlm, moe, ssm and hybrid architectures are ported
+(qwen2-1.5b, gemma2-27b, glm4-9b, chameleon-34b, nemotron-4-340b,
+granite-moe-1b-a400m, deepseek-v2-236b, xlstm-1.3b, zamba2-1.2b). The
+reference's one other architecture, whisper-small's encoder-decoder,
+raises a ``KeyError`` that says so (ROADMAP.md, queue 1, item 4).
 """
 from __future__ import annotations
 
@@ -20,8 +20,10 @@ _MODULES = {
     "nemotron-4-340b": "nemotron_4_340b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "deepseek-v2-236b": "deepseek_v2_236b",
+    "xlstm-1.3b": "xlstm_1_3b",
+    "zamba2-1.2b": "zamba2_1_2b",
 }
-NOT_PORTED = ("whisper-small", "xlstm-1.3b", "zamba2-1.2b")
+NOT_PORTED = ("whisper-small",)
 
 ARCH_IDS = tuple(_MODULES)
 

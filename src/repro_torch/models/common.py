@@ -1,6 +1,9 @@
-# repro: quarantine -- growth-seed LM serving path (the dense and vlm families); nothing in the battery system imports it
+# repro: quarantine -- growth-seed LM serving path (every ported family); nothing in the battery system imports it
 """Shared model primitives: norms, activations, softcap, rope (port of
-``repro/models/common.py``)."""
+``repro/models/common.py``), and what the Mamba-2 and xLSTM blocks share:
+softplus, log-sigmoid, the chunk length, and the depthwise causal conv
+(the reference's ``ssm._causal_conv`` and ``xlstm._conv_causal``, one
+function)."""
 from __future__ import annotations
 
 import torch
@@ -52,6 +55,52 @@ def act_fn(name: str):
 def relu2(x):
     """Squared ReLU, ``jnp.square(jax.nn.relu(x))`` in the reference."""
     return F.relu(x).square()
+
+
+def softplus(x):
+    """``jax.nn.softplus``: ``logaddexp(x, 0) = max(x, 0) +
+    log1p(exp(-|x|))``, the reference's formula. ``F.softplus`` returns
+    ``x`` itself above its threshold 20, where the dropped
+    ``log1p(exp(-x))`` is under 2.1e-9: below float32's resolution at 20
+    (1.9e-6), so the two round alike there too."""
+    return x.clamp_min(0) + torch.log1p(torch.exp(-x.abs()))
+
+
+def log_sigmoid(x):
+    """``jax.nn.log_sigmoid``: ``-softplus(-x) = min(x, 0) -
+    log1p(exp(-|x|))``, the formula ``F.logsigmoid`` also computes."""
+    return x.clamp_max(0) - torch.log1p(torch.exp(-x.abs()))
+
+
+def chunk_len(chunk: int, length: int) -> int:
+    """The chunk length of the Mamba-2 and mLSTM blocks' chunked forms,
+    as the reference's: ``min(chunk, length)``, halved until it
+    divides ``length``."""
+    q = min(chunk, length)
+    while length % q:
+        q //= 2
+    return q
+
+
+def causal_conv(x, w, b, state=None):
+    """Depthwise causal conv of width K, then SiLU. x: (B, L, C); w: (K, C);
+    state: the previous K - 1 inputs (B, K - 1, C), zeros when None.
+    Returns (out (B, L, C), the last K - 1 inputs (B, K - 1, C)).
+
+    A shifted sum in the reference's order, in x's dtype:
+    ``((x_0 w_0 + x_1 w_1) + ...) + b``; not ``F.conv1d``, which on the
+    card goes to cuDNN and may run float32 on TF32."""
+    k = w.shape[0]
+    if state is None:
+        pad = x.new_zeros((x.shape[0], k - 1, x.shape[2]))
+    else:
+        pad = state.to(x.dtype)
+    full = torch.cat([pad, x], dim=1)
+    n = x.shape[1]
+    out = full[:, 0:n] * w[0].to(x.dtype)
+    for i in range(1, k):
+        out = out + full[:, i:i + n] * w[i].to(x.dtype)
+    return F.silu(out + b.to(x.dtype)), full[:, n:]
 
 
 def softcap(x, cap: float):

@@ -1,6 +1,7 @@
-# repro: quarantine -- growth-seed LM serving path (the dense, vlm and moe families); nothing in the battery system imports it
-"""Prefill and single-token decode, dense, vlm and moe families (port of
-``repro/models/decode.py``; vlm runs as dense there too).
+# repro: quarantine -- growth-seed LM serving path (the dense, vlm, moe, ssm and hybrid families); nothing in the battery system imports it
+"""Prefill and single-token decode, dense, vlm, moe, ssm and hybrid
+families (port of ``repro/models/decode.py``; vlm runs as dense there
+too).
 
 ``prefill(params, tokens, cfg, max_seq)`` runs the full-sequence forward
 while filling the decode cache. ``decode_step(params, cache, token, cfg)``
@@ -14,14 +15,93 @@ A GQA block caches k/v; an MLA block (deepseek-v2) caches its latent
 ``ckv`` and rope key ``kr`` and decodes in the absorbed form. The MoE
 layer routes the B tokens of a decode step as their own group, as in
 the reference.
+
+The recurrent families keep states, not a history. xlstm's prefill runs
+each block's chunked (mLSTM) or looped (sLSTM) form and stores its final
+state; its decode advances each state one step in the recurrent form.
+zamba2's prefill stores each application of the shared block's k/v in
+its own slot and each Mamba-2 layer's conv tail and SSD state; its
+decode attends over the slot and advances the states. Decode writes the
+new states into the cache in place, as it writes k/v.
 """
 from __future__ import annotations
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import apply_norm
-from repro_torch.models.lm import (_lm_logits, apply_attn_block, apply_mlp,
-                                   block_cache, block_params, embed,
-                                   init_cache, stacks, unit)
+from repro_torch.models.lm import (SHARED, _lm_logits, apply_attn_block,
+                                   apply_mlp, block_cache, block_params,
+                                   embed, group_cache, group_params,
+                                   hybrid_groups, init_cache, n_superblocks,
+                                   stacks, unit)
+
+
+def _store(leaves, index, state):
+    """Write ``state``'s tensors into the cache ``leaves`` at ``index``."""
+    for name, val in state.items():
+        leaves[name][index] = val
+
+
+def _prefill_recurrent(params, x, cache, cfg, s):
+    """The ssm and hybrid families' layers over the prompt ``x``, filling
+    ``cache`` (``s`` prompt positions of zamba2's k/v)."""
+    if cfg.family == "ssm":
+        n_super, n_m = n_superblocks(cfg)
+        for i in range(n_super):
+            up = unit(params["units"], i)
+            for j in range(n_m):
+                y, st = xlstm_mod.mlstm(unit(up["mlstm"], j), x, cfg,
+                                        return_state=True)
+                x = x + y
+                _store(cache["mlstm"], (i, j), st)
+            y, st = xlstm_mod.slstm(up["slstm"], x, cfg, return_state=True)
+            x = x + y
+            _store(cache["slstm"], i, st)
+        return x
+    for slot, i, n in hybrid_groups(cfg):
+        x, kv, _ = apply_attn_block(params["shared_block"], x, cfg, SHARED)
+        for name, val in kv.items():
+            cache["attn"][name][slot, :, :s] = val
+        layers, states = group_params(params, i), group_cache(cache, i)
+        for j in range(n):
+            # from the cache's zero states, as the reference's prefill
+            y, conv, ssm = ssm_mod.mamba2(unit(layers, j), x, cfg,
+                                          states["conv"][j],
+                                          states["ssm"][j])
+            x = x + y
+            _store(states, j, {"conv": conv, "ssm": ssm})
+    return x
+
+
+def _decode_recurrent(params, x, cache, pos, cfg):
+    """One token through the ssm and hybrid families' layers, advancing
+    ``cache``'s states (and zamba2's k/v at ``pos``) in place."""
+    if cfg.family == "ssm":
+        n_super, n_m = n_superblocks(cfg)
+        for i in range(n_super):
+            up = unit(params["units"], i)
+            for j in range(n_m):
+                y, st = xlstm_mod.mlstm_decode(
+                    unit(up["mlstm"], j), x,
+                    unit(cache["mlstm"], (i, j)), cfg)
+                x = x + y
+                _store(cache["mlstm"], (i, j), st)
+            y, st = xlstm_mod.slstm_decode(up["slstm"], x,
+                                           unit(cache["slstm"], i), cfg)
+            x = x + y
+            _store(cache["slstm"], i, st)
+        return x
+    for slot, i, n in hybrid_groups(cfg):
+        x = _block_decode(params["shared_block"], x, cache["attn"], slot,
+                          pos, cfg, SHARED)
+        layers, states = group_params(params, i), group_cache(cache, i)
+        for j in range(n):
+            y, conv, ssm = ssm_mod.mamba2_decode(
+                unit(layers, j), x, states["conv"][j], states["ssm"][j], cfg)
+            x = x + y
+            _store(states, j, {"conv": conv, "ssm": ssm})
+    return x
 
 
 def prefill(params, tokens, cfg, max_seq=None):
@@ -31,6 +111,8 @@ def prefill(params, tokens, cfg, max_seq=None):
     max_seq = max_seq or s
     cache = init_cache(cfg, b, max_seq, device=tokens.device)
     x = embed(params, tokens, cfg)
+    if cfg.family in ("ssm", "hybrid"):
+        x = _prefill_recurrent(params, x, cache, cfg, s)
     for pkey, ckey, n, blocks in stacks(cfg):
         for i in range(n):
             up = unit(params[pkey], i)
@@ -71,6 +153,8 @@ def decode_step(params, cache, token, cfg):
     cache, written in place at ``pos``, with ``pos`` advanced by one."""
     pos = cache["pos"]
     x = embed(params, token, cfg)
+    if cfg.family in ("ssm", "hybrid"):
+        x = _decode_recurrent(params, x, cache, pos, cfg)
     for pkey, ckey, n, blocks in stacks(cfg):
         for i in range(n):
             up = unit(params[pkey], i)

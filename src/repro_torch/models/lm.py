@@ -1,5 +1,5 @@
-# repro: quarantine -- growth-seed LM serving path (the dense, vlm and moe families); nothing in the battery system imports it
-"""Model assembly, dense, vlm and moe families (port of
+# repro: quarantine -- growth-seed LM serving path (the dense, vlm, moe, ssm and hybrid families); nothing in the battery system imports it
+"""Model assembly, dense, vlm, moe, ssm and hybrid families (port of
 ``repro/models/lm.py``).
 
 Public surface:
@@ -24,9 +24,21 @@ no frontend code. The moe family (granite-moe, deepseek-v2) stacks
 ``moe.first_dense_layers`` dense blocks (``head_blocks``, their MLP
 ``moe.d_ff_dense`` wide) before ``units`` of one ``blk`` whose MLP is the
 MoE layer; its attention is MLA where ``cfg.mla`` is set, GQA otherwise,
-and its forward returns the sum of the MoE layers' aux losses. Other
-families and frontends raise ``NotImplementedError`` (ROADMAP.md, queue
-1 item 4).
+and its forward returns the sum of the MoE layers' aux losses.
+
+The ssm family (xlstm) has no attention: ``n_layers / slstm_every``
+superblocks (``units``), each ``slstm_every - 1`` mLSTM blocks (a nested
+``mlstm`` stack over ``inner_layers``) and then one sLSTM block with its
+own gated FFN; every block adds its own residual. The hybrid family
+(zamba2) runs one ``shared_block`` (attention + MLP, one set of weights)
+before each group of ``shared_attn_every`` Mamba-2 layers (``units``,
+a nested ``mamba`` stack) and once more before the ``tail`` of
+``n_layers % shared_attn_every`` layers: each application has its own
+k/v slot in the cache. Their caches are recurrent states in float32
+(SSD's (H, P, N) state; mLSTM's c/n/m; sLSTM's c/n/h/m) and conv tails
+in the compute dtype. The other family (whisper's audio) and frontend
+(``frames``) raise ``NotImplementedError`` (ROADMAP.md, queue 1 item
+4).
 """
 from __future__ import annotations
 
@@ -39,13 +51,15 @@ import torch
 from repro_torch.common.device import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import act_fn, apply_norm, norm_spec, softcap
 from repro_torch.models.mlp import mlp, spec_mlp
 from repro_torch.models.params import (P, count_spec_params, init_from_spec,
                                        leaves, stack_spec, tree_map)
 
 
-FAMILIES = ("dense", "vlm", "moe")
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 FRONTENDS = ("tokens", "fused")
 
 
@@ -60,6 +74,12 @@ def _check_ported(cfg):
             f"only {FRONTENDS} are (see ROADMAP.md, queue 1 item 4)")
     if cfg.family == "moe" and cfg.moe is None:
         raise ValueError(f"{cfg.arch_id}: the moe family needs cfg.moe")
+    if cfg.family == "ssm" and cfg.xlstm is None:
+        raise ValueError(f"{cfg.arch_id}: the ssm family needs cfg.xlstm")
+    if cfg.family == "hybrid" and (cfg.ssm is None
+                                   or cfg.shared_attn_every < 1):
+        raise ValueError(f"{cfg.arch_id}: the hybrid family needs cfg.ssm "
+                         f"and shared_attn_every >= 1")
     act_fn(cfg.act)
 
 
@@ -104,7 +124,10 @@ def stacks(cfg):
     ``units`` of ``_unit_structure``'s blocks. moe: ``head_blocks`` (the
     leading dense layers, cache ``head``), then ``units`` of one MoE
     ``blk``; the reference's caches of both hold the block's leaves
-    directly."""
+    directly. The ssm and hybrid families have none (their layers are
+    not attention blocks: ``n_superblocks``, ``hybrid_groups``)."""
+    if cfg.family in ("ssm", "hybrid"):
+        return []
     if cfg.family == "moe":
         m, mla = cfg.moe, cfg.mla is not None
         out = []
@@ -119,6 +142,40 @@ def stacks(cfg):
              [Block(key, key, kind, False, False) for key, kind in blocks])]
 
 
+# zamba2's shared block: plain attention and MLP, global
+SHARED = Block(None, None, "global", False, False)
+
+
+def n_superblocks(cfg):
+    """xlstm: (superblocks, mLSTM blocks in each)."""
+    k = cfg.xlstm.slstm_every
+    return cfg.n_layers // k, k - 1
+
+
+def hybrid_groups(cfg):
+    """zamba2's groups in the order they run, each after its own
+    application of the shared block: (k/v slot, unit index (None: the
+    tail), Mamba-2 layers). ``n_layers // shared_attn_every`` full groups
+    (``units``), then the ``tail`` of the rest, if any."""
+    k = cfg.shared_attn_every
+    n_full, tail = divmod(cfg.n_layers, k)
+    out = [(i, i, k) for i in range(n_full)]
+    if tail:
+        out.append((n_full, None, tail))
+    return out
+
+
+def group_params(params, i):
+    """Group ``i``'s stacked Mamba-2 layers (``i`` None: the tail's)."""
+    return params["tail"] if i is None else unit(params["units"], i)["mamba"]
+
+
+def group_cache(cache, i):
+    """Group ``i``'s stacked Mamba-2 states ``{"conv", "ssm"}`` (views
+    into the cache; ``i`` None: the tail's)."""
+    return cache["tail"] if i is None else unit(cache["mamba"], i)
+
+
 def model_spec(cfg) -> Dict[str, Any]:
     _check_ported(cfg)
     d = cfg.d_model
@@ -128,6 +185,23 @@ def model_spec(cfg) -> Dict[str, Any]:
     }
     if not cfg.tie_embeddings:
         spec["lm_head"] = P((d, cfg.padded_vocab), ("embed", "vocab"))
+    if cfg.family == "ssm":
+        n_super, n_m = n_superblocks(cfg)
+        spec["units"] = stack_spec({
+            "mlstm": stack_spec(xlstm_mod.spec_mlstm(cfg), n_m,
+                                "inner_layers"),
+            "slstm": xlstm_mod.spec_slstm(cfg)}, n_super)
+        return spec
+    if cfg.family == "hybrid":
+        n_full, tail = divmod(cfg.n_layers, cfg.shared_attn_every)
+        spec["shared_block"] = _spec_attn_block(cfg)
+        spec["units"] = stack_spec(
+            {"mamba": stack_spec(ssm_mod.spec_mamba2(cfg),
+                                 cfg.shared_attn_every, "inner_layers")},
+            n_full)
+        if tail:
+            spec["tail"] = stack_spec(ssm_mod.spec_mamba2(cfg), tail)
+        return spec
     for pkey, _, n, blocks in stacks(cfg):
         d_ff = cfg.moe.d_ff_dense if pkey == "head_blocks" else None
         specs = {b.param: _spec_attn_block(cfg, b.moe, d_ff, b.mla)
@@ -229,6 +303,19 @@ def forward_hidden(params, tokens, cfg):
     _check_ported(cfg)
     x = embed(params, tokens, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family == "ssm":
+        n_super, n_m = n_superblocks(cfg)
+        for i in range(n_super):
+            up = unit(params["units"], i)
+            for j in range(n_m):
+                x = x + xlstm_mod.mlstm(unit(up["mlstm"], j), x, cfg)
+            x = x + xlstm_mod.slstm(up["slstm"], x, cfg)
+    elif cfg.family == "hybrid":
+        for _, i, n in hybrid_groups(cfg):
+            x, _, _ = apply_attn_block(params["shared_block"], x, cfg, SHARED)
+            layers = group_params(params, i)
+            for j in range(n):
+                x = x + ssm_mod.mamba2(unit(layers, j), x, cfg)
     for pkey, _, n, blocks in stacks(cfg):
         for i in range(n):
             up = unit(params[pkey], i)
@@ -262,10 +349,14 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=None, device=None):
     blocks' leaves with a leading unit dim: GQA k/v (n, B, max_seq, K, dh)
     (under each block key for dense and vlm, directly for moe, as in the
     reference), MLA's latent ``ckv`` (n, B, max_seq, kv_lora_rank) and
-    rope key ``kr`` (n, B, max_seq, qk_rope_head_dim)."""
+    rope key ``kr`` (n, B, max_seq, qk_rope_head_dim). The ssm and
+    hybrid families' recurrent states are float32, whatever ``dtype``
+    (the reference's layout, below)."""
     _check_ported(cfg)
     dev = resolve_device(device)
     cdt = dtype or _cdtype(cfg)
+    if cfg.family in ("ssm", "hybrid"):
+        return _recurrent_cache(cfg, batch, max_seq, cdt, dev)
 
     def leaves_of(n, blk):
         if blk.mla:
@@ -280,4 +371,56 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=None, device=None):
     for _, ckey, n, blocks in stacks(cfg):
         per = {blk.cache: leaves_of(n, blk) for blk in blocks}
         cache[ckey] = per.get(None, per)
+    return cache
+
+
+def _recurrent_cache(cfg, batch, max_seq, cdt, dev):
+    """The reference's caches of the two recurrent families. xlstm:
+    ``mlstm`` {c (n_super, n_m, B, H, dh, dh), n (.., H, dh), m (.., H)
+    at -1e30, conv (.., K - 1, inner)} and ``slstm`` {c, n at 1e-6, h, m
+    at -1e30 (n_super, B, D), conv (n_super, B, K - 1, D)}. zamba2: one
+    k/v slot per application of the shared block, ``attn`` {k, v
+    (n_attn, B, max_seq, K, dh)}, and per Mamba-2 layer ``mamba`` {conv
+    (n_full, k, B, d_conv - 1, conv_dim), ssm (n_full, k, B, H, P, N)},
+    ``tail`` the same with one leading dim. Conv tails and k/v in
+    ``cdt``, states in float32."""
+    f32 = torch.float32
+
+    def full(shape, value, dtype=f32):
+        return torch.full(shape, value, dtype=dtype, device=dev)
+
+    cache = {"pos": 0}
+    if cfg.family == "ssm":
+        xc = cfg.xlstm
+        n_super, n_m = n_superblocks(cfg)
+        inner, heads, mdh = xlstm_mod._mdims(cfg)
+        d, kc = cfg.d_model, xc.conv_width - 1
+        lead = (n_super, n_m, batch, heads)
+        cache["mlstm"] = {"c": full(lead + (mdh, mdh), 0.0),
+                          "n": full(lead + (mdh,), 0.0),
+                          "m": full(lead, xlstm_mod.M_INIT),
+                          "conv": full((n_super, n_m, batch, kc, inner), 0.0,
+                                       cdt)}
+        lead = (n_super, batch, d)
+        cache["slstm"] = {"c": full(lead, 0.0),
+                          "n": full(lead, xlstm_mod.N_FLOOR),
+                          "h": full(lead, 0.0),
+                          "m": full(lead, xlstm_mod.M_INIT),
+                          "conv": full((n_super, batch, kc, d), 0.0, cdt)}
+        return cache
+    s = cfg.ssm
+    _, n_heads, conv_dim = ssm_mod._dims(cfg)
+    groups = hybrid_groups(cfg)
+    kv = (len(groups), batch, max_seq, cfg.n_kv_heads, cfg.head_dim_)
+    cache["attn"] = {"k": full(kv, 0.0, cdt), "v": full(kv, 0.0, cdt)}
+
+    def states(lead):
+        return {"conv": full(lead + (batch, s.d_conv - 1, conv_dim), 0.0,
+                             cdt),
+                "ssm": full(lead + (batch, n_heads, s.head_dim, s.d_state),
+                            0.0)}
+    n_full, tail = divmod(cfg.n_layers, cfg.shared_attn_every)
+    cache["mamba"] = states((n_full, cfg.shared_attn_every))
+    if tail:
+        cache["tail"] = states((tail,))
     return cache

@@ -211,16 +211,15 @@ def test_config_and_param_count_match_reference():
 
 
 def test_unported_architectures_and_paths_raise():
-    """What stays unported raises: an architecture of another family
-    (zamba2), an activation no ported config uses (whisper's plain GELU),
-    zamba2's hybrid family, whisper's ``frames`` frontend, bidirectional
-    and cross attention."""
+    """What stays unported raises: whisper-small's architecture, its
+    audio family, its plain GELU, its ``frames`` frontend, and the
+    bidirectional and cross attention of its encoder-decoder."""
     with pytest.raises(KeyError, match="not ported yet"):
-        get_config("zamba2-1.2b")
+        get_config("whisper-small")
     with pytest.raises(KeyError, match="unknown"):
         get_config("gpt-2")
     cfg = get_reduced(ARCH)
-    for other in (dataclasses.replace(cfg, family="hybrid"),
+    for other in (dataclasses.replace(cfg, family="audio"),
                   dataclasses.replace(cfg, act="gelu_plain"),
                   dataclasses.replace(cfg, frontend="frames")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
