@@ -194,6 +194,22 @@ Phases, one line each (details in ``reports/chip_smoke/chip_smoke.json``):
    ``prefill(255)`` (chunks of 1) against ``prefill(256)`` (chunks of
    128). Each model is freed before the next is built; the phase's
    seconds are printed.
+17. (run right after phase 16) whisper-small on the card: the kernel's
+   non-causal form alone on both routes (bfloat16 ``wgmma``, float32
+   ``simt``) at the encoder's shape (8 x 1,500 frames, 12 heads, dh 64,
+   padded to 1,536 with a key count of 1,500), timed beside its bound and
+   ``scaled_dot_product_attention`` on the same unpadded inputs with the
+   backend that took the call, and at the cross attention's (8 x 4 and 1
+   x 224 queries on 1,500 keys), and at key counts 1, 64, 128 and 1,536,
+   against its plain version (the tensor-core route also row by row
+   against its arithmetic); then full width and depth (12 encoder + 12
+   decoder layers) in bfloat16 parameters (0.61 GB), frames from the
+   seed: 8 x 1,500 frames behind 4-token prompts with 64 greedy tokens,
+   and 1 x 1,500 behind a 224-token prompt with 32; 36 flash-attention
+   launches per prefill, all ``wgmma``, 24 non-causal (12 encoder, 12
+   cross) and 12 causal; one profiled prefill and decode step; then
+   float32 greedy parity, kernel (``simt``) against plain, at full depth
+   on the 8 x 1,500 shape. The phase's seconds are printed.
 
 Phase 3 times every kernel at the shapes the main paths gave it (BigCrush
 for the battery kernels and mwc, phase 6 for flash attention).
@@ -201,10 +217,12 @@ for the battery kernels and mwc, phase 6 for flash attention).
 Any failure raises, and the script exits non-zero without a result line;
 the traceback and ``nvidia-smi -q`` go to ``reports/chip_smoke/chip_smoke_failure.txt``.
 The kernels' JSON adds each kernel's launches in phases 8, 9, 10, 11,
-13, 14, 15 and 16 (``launches_captured_bigcrush``,
+13, 14, 15, 16 and 17 (``launches_captured_bigcrush``,
 ``launches_campaign``, ``launches_elastic_faults``, ``launches_serve``,
 ``launches_gemma2``, ``launches_dense_archs``, ``launches_moe``,
-``launches_recurrent``) beside those of the main path. The last three
+``launches_recurrent``, ``launches_whisper``) beside those of the main
+path, and flash attention's row its non-causal launches in phase 17
+(``bidir``). The last three
 lines are the kernels' JSON, the card, and ``{"ok": true, "device":
 {...}}``.
 """
@@ -424,6 +442,28 @@ XLSTM_PARITY = (1, 256, 4)
 # prefill(L) against prefill(L + 1); L = 255 prefills in chunks of 1, L +
 # 1 = 256 in chunks of 128
 STEP_VS_CHUNK_LEN = 255
+# phase 17: whisper-small at full width and depth in bfloat16 parameters
+# (0.61 GB; 12 encoder + 12 decoder layers), encoder_seq frames a request
+# drawn from the seed: (batch, decoder prompt length, generated tokens):
+# 8 utterances behind whisper's 4-token start-of-transcript prompt, and
+# one behind a 224-token prompt (a previous window's text); 36
+# flash-attention launches a prefill, all ``wgmma`` at dh 64: 12 encoder
+# (non-causal), 12 decoder self (causal), 12 cross (non-causal)
+WHISPER_SERVE = [(8, 4, 64), (1, 224, 32)]
+WHISPER_LAUNCHES = {"launches": 36, "bidir": 24}
+# the kernel alone, non-causal, on both routes (bfloat16 ``wgmma``,
+# float32 ``simt``): (B, S, T, H, dh); the encoder's 1,500 frames (padded
+# to 1,536 with kv_len 1,500; timed), the cross attention of both
+# prompts (S 4 -> 128, 224 -> 256) against them
+WHISPER_FA = [("encoder", (8, 1500, 1500, 12, 64)),
+              ("cross, 4-token prompt", (8, 4, 1500, 12, 64)),
+              ("cross, 224-token prompt", (1, 224, 1500, 12, 64))]
+# the key count's edge cases on T = 1,536 keys (S 256): one key, half a
+# tile of either route, one tensor-core tile, every key
+WHISPER_KV_LENS = [1, 64, 128, 1536]
+# float32 greedy parity, kernel against plain, at full depth: the first
+# request's shape, this many tokens
+WHISPER_PARITY_GEN = 16
 # (batch, prompt length, generated tokens) of the serve phase
 SERVE = [(4, 512, 64), (2, 2048, 16)]
 # float32 serve parity, kernel vs plain: last-position logits are O(1)
@@ -795,9 +835,10 @@ def print_fa(c):
           f"({c['bound_by']}){simt}", flush=True)
 
 
-def sdpa_backend(call, q, k, v, scale):
+def sdpa_backend(call, q, k, v, scale, causal=True):
     """Which of ``scaled_dot_product_attention``'s backends take ``call``
-    (causal, GQA, on q, k, v in its (B, H, S, d) layout) when it is the
+    (causal unless ``causal`` is False, GQA, on q, k, v in its (B, H, S,
+    d) layout) when it is the
     only one allowed (``accept``), which one its dispatch picks with all
     allowed (``took``: ``torch._fused_sdp_choice`` on the same inputs),
     and the device kernels of one profiled call (``kernels``; the
@@ -820,7 +861,7 @@ def sdpa_backend(call, q, k, v, scale):
             pass
     backends = {int(getattr(SDPBackend, n)): n.lower() for n in dir(SDPBackend)
                 if n.isupper()}
-    choice = int(torch._fused_sdp_choice(q, k, v, None, 0.0, True,
+    choice = int(torch._fused_sdp_choice(q, k, v, None, 0.0, causal,
                                          scale=scale, enable_gqa=True))
     return {"accept": accept, "took": backends.get(choice, str(choice)),
             "kernels": [n for n, _, _ in device_busy(call)["by_name"]][:6]}
@@ -954,16 +995,18 @@ def print_fa_window(c):
           f"{c['atol']}{extra}", flush=True)
 
 
-def greedy(params, prompts, cfg, gen_len):
-    """One batch of greedy requests: prefill, then argmax -> decode_step.
-    Returns the prefill's last-position logits, the (B, gen_len) tokens
-    (the first from the prefill) and the prefill and decode seconds."""
+def greedy(params, prompts, cfg, gen_len, frames=None):
+    """One batch of greedy requests: prefill (whisper's from ``frames``),
+    then argmax -> decode_step. Returns the prefill's last-position
+    logits, the (B, gen_len) tokens (the first from the prefill) and the
+    prefill and decode seconds."""
     import torch
     from repro_torch.models.decode import decode_step, prefill
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, cache = prefill(params, prompts, cfg,
-                            max_seq=prompts.shape[1] + gen_len)
+                            max_seq=prompts.shape[1] + gen_len,
+                            frames=frames)
     first = logits.float()
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -1039,6 +1082,7 @@ def zero_counts():
         if hasattr(fn, "windowed"):
             fn.windowed = 0
             fn.split_dv = 0
+            fn.bidir = 0
 
 
 def launch_counts():
@@ -2279,17 +2323,18 @@ def gemma2_phase(card):
     return out
 
 
-def profile_serving(tag, params, cfg, run, prompts, cpu=True):
-    """One profiled prefill of ``prompts`` and one decode step after it:
-    device busy ms, idle share against the run's unprofiled times, flash
-    attention's device ms, the top kernels (printed under ``tag``).
-    ``cpu=False`` traces the device alone (``device_busy``)."""
+def profile_serving(tag, params, cfg, run, prompts, cpu=True, frames=None):
+    """One profiled prefill of ``prompts`` (whisper's from ``frames``) and
+    one decode step after it: device busy ms, idle share against the
+    run's unprofiled times, flash attention's device ms, the top kernels
+    (printed under ``tag``). ``cpu=False`` traces the device alone
+    (``device_busy``)."""
     from repro_torch.models.decode import decode_step, prefill
     state = {}
 
     def prof_prefill():
         state["out"] = prefill(params, prompts, cfg,
-                               max_seq=run["prompt_len"] + 2)
+                               max_seq=run["prompt_len"] + 2, frames=frames)
     profiles = {"prefill": (device_busy(prof_prefill, cpu=cpu),
                             run["prefill_ms"])}
     logits, cache = state.pop("out")
@@ -2879,6 +2924,264 @@ def recurrent_phase(card):
     return out
 
 
+def fa_bidir_case(b, s, t, h, dh, dtype, seed=0, timed=False):
+    """Check the flash-attention kernel's non-causal form against its
+    plain version at q (B, S, H, dh), k/v (B, T, H, dh), through
+    ``ops.mha(causal=False)`` as the model calls it (S and T padded to
+    128, ``kv_len = T``), within FA_ATOL; on the tensor-core route also
+    row by row against its own arithmetic emulated in float32.
+    ``timed`` adds per-call and device times of the kernel, the plain
+    version's time, ``scaled_dot_product_attention`` on the same unpadded
+    non-causal inputs (the same function) with the backend that takes it,
+    and the bound from the S x T pairs."""
+    import torch
+    import torch.nn.functional as F
+    from test_torch_flash import WGMMA_ROW_RTOL, row_rel_err, wgmma_emulation
+    from repro_torch.kernels.flash_attention.kernel import BLOCK, route
+    from repro_torch.kernels.flash_attention.ops import mha
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn((b, n, h, dh), generator=g, device="cuda").to(dt)
+               for n in (s, t, t))
+    scale = dh ** -0.5
+    what = f"flash_attention non-causal B{b} S{s} T{t} H{h} dh{dh} {dtype}"
+    got = mha(q, k, v, scale=scale, causal=False)
+    want = mha_ref(q, k, v, scale=scale, causal=False)
+    torch.cuda.synchronize()
+    check(got.shape == want.shape == (b, s, h, dh)
+          and bool(torch.isfinite(got).all()),
+          f"{what}: shape or non-finite output")
+    err = float((got.float() - want.float()).abs().max())
+    check(err <= FA_ATOL[dtype], f"{what}: max |kernel - plain| {err} > "
+                                 f"{FA_ATOL[dtype]}")
+    kind = route(dt, dh)
+    rec = {"b": b, "s": s, "t": t, "h": h, "dh": dh, "dtype": dtype,
+           "route": kind, "kv_len": t, "padded": [-(-s // BLOCK) * BLOCK,
+                                                  -(-t // BLOCK) * BLOCK],
+           "max_abs_err": err, "atol": FA_ATOL[dtype]}
+    if kind == "wgmma":
+        pad = lambda x, n: F.pad(x, (0, 0, 0, 0, 0, n - x.shape[1]))
+        sp, tp = rec["padded"]
+        same = wgmma_emulation(pad(q, sp), pad(k, tp), pad(v, tp),
+                               scale=scale, causal=False, kv_len=t)[:, :s]
+        rec["row_rel_err"] = row_rel_err(got, same)
+        check(rec["row_rel_err"] <= WGMMA_ROW_RTOL, f"{what}: row-relative "
+              f"error against its arithmetic {rec['row_rel_err']} > "
+              f"{WGMMA_ROW_RTOL}")
+        del same
+    del want
+    if not timed:
+        return rec
+
+    def kernel():
+        return mha(q, k, v, scale=scale, causal=False)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt, scale=scale)
+    esize = torch.finfo(dt).bits // 8
+    peak = SCALAR_OPS_PER_S if dt == torch.float32 else TENSOR_BF16_FLOPS
+    # QK^T and PV, 2 * dh operations each a (query, key) pair; q, k, v
+    # read once and o written once, unpadded
+    bound, by = bound_ms(esize * b * h * dh * 2 * (s + t),
+                         4 * dh * b * h * s * t, peak)
+    rec.update({"ms": median_ms(kernel), "device_ms": device_ms(kernel),
+                "plain_ms": median_ms(lambda: mha_ref(q, k, v, scale=scale,
+                                                      causal=False),
+                                      reps=3, warmup=1),
+                "library_ms": median_ms(library),
+                "library_device_ms": device_ms(library),
+                "sdpa": sdpa_backend(library, qt, kt, vt, scale,
+                                     causal=False),
+                "bound_ms": bound, "bound_by": by, "peak_ops_per_s": peak})
+    return rec
+
+
+def fa_kv_len_case(kv_len, dtype, seed=0):
+    """The launcher's non-causal form at one key count on T = 1,536 keys
+    (S 256, 12 heads, dh 64) against ``mha_ref(kv_len=...)``."""
+    import torch
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v = (torch.randn((1, n, 12, 64), generator=g, device="cuda").to(dt)
+               for n in (256, 1536, 1536))
+    got = flash_attention(q, k, v, scale=0.125, causal=False, kv_len=kv_len)
+    want = mha_ref(q, k, v, scale=0.125, causal=False, kv_len=kv_len)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    check(bool(torch.isfinite(got).all()) and err <= FA_ATOL[dtype],
+          f"flash_attention non-causal kv_len {kv_len} of 1536 {dtype}: max "
+          f"|kernel - plain| {err} > {FA_ATOL[dtype]}")
+    return err
+
+
+def whisper_phase(card):
+    """Phase 17: whisper-small on the card, weights and frames from seed 0.
+
+    (a) The kernel's non-causal form alone on both routes (bfloat16
+    ``wgmma``, float32 ``simt``), through ``fa_bidir_case``: at the
+    encoder's shape (8 x 1,500 frames, 12 heads, dh 64; timed beside
+    ``scaled_dot_product_attention`` and the bound) and the cross
+    attention's (8 x 4 and 1 x 224 queries on 1,500 keys) against
+    ``mha_ref`` within FA_ATOL; the key counts WHISPER_KV_LENS through the
+    launcher.
+    (b) Full width and depth with bfloat16 parameters, compute bfloat16,
+    frames (B, encoder_seq, d_model) from the seed: WHISPER_SERVE's
+    requests, each after a warm-up at its shape; 36 flash-attention
+    launches a prefill, all ``wgmma``, 24 non-causal (encoder and
+    cross); prefill ms, decode ms per step, tokens/s, peak memory; one
+    profiled prefill and decode step at the first shape. Launch counts
+    are zeroed just before each measured request and read just after.
+    (c) Float32 parameters and compute, full depth, the first request's
+    shape and frames, WHISPER_PARITY_GEN greedy tokens through the kernel
+    (``simt``) and with the model's attention rebound to the plain
+    version: last-position logits within SERVE_LOGITS_ATOL and every
+    token equal."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models.lm import init_params
+    from repro_torch.models.params import leaves
+    flash = _kernel_fns()["flash_attention"]
+    out = {"launches": {name: 0 for name in _kernel_fns()}, "bidir": 0,
+           "attention": [], "kv_lens": {}, "runs": []}
+    torch.cuda.empty_cache()
+    for dtype in ("bfloat16", "float32"):
+        for i, (what, shape) in enumerate(WHISPER_FA):
+            c = fa_bidir_case(*shape, dtype, seed=17 + i, timed=i == 0)
+            c["what"] = what
+            out["attention"].append(c)
+            times = ""
+            if "ms" in c:
+                times = (f" | kernel {c['ms']:.4f} ms (device "
+                         f"{c['device_ms']:.4f}), plain {c['plain_ms']:.4f} "
+                         f"ms, sdpa {c['library_ms']:.4f} ms (device "
+                         f"{c['library_device_ms']:.4f}) [backend "
+                         f"{c['sdpa']['took']}; alone: "
+                         f"{','.join(c['sdpa']['accept'])}], bound "
+                         f"{c['bound_ms']:.4f} ms ({c['bound_by']})")
+            row = (f", row err vs its arithmetic {c['row_rel_err']:.3g}"
+                   if "row_rel_err" in c else "")
+            print(f"[whisper kernels] {what}: B{c['b']} S{c['s']} T{c['t']} "
+                  f"(padded {c['padded']}, kv_len {c['kv_len']}) H{c['h']} "
+                  f"dh{c['dh']} {dtype} ({c['route']}): max err "
+                  f"{c['max_abs_err']:.3g} <= {c['atol']}{row}{times}",
+                  flush=True)
+            torch.cuda.empty_cache()
+        errs = {n: fa_kv_len_case(n, dtype, seed=n) for n in WHISPER_KV_LENS}
+        out["kv_lens"][dtype] = errs
+        print(f"[whisper kernels] kv_len on 1536 keys, {dtype}: max err "
+              + ", ".join(f"{n}: {e:.3g}" for n, e in errs.items())
+              + f" <= {FA_ATOL[dtype]}", flush=True)
+
+    base = get_config("whisper-small")
+    cfg = dataclasses.replace(base, param_dtype="bfloat16")
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    out["init_s"] = time.perf_counter() - t0
+    out["n_params"] = cfg.n_params()
+    out["param_bytes"] = sum(p.numel() * p.element_size()
+                             for p in leaves(params))
+    print(f"[whisper] whisper-small at full width and depth, "
+          f"{cfg.n_encoder_layers} encoder + {cfg.n_layers} decoder layers "
+          f"(d{cfg.d_model}, {cfg.n_heads}H dh {cfg.head_dim_}, ff {cfg.d_ff} "
+          f"{cfg.act}; vocab {cfg.vocab_size}; {cfg.encoder_seq} frames): "
+          f"{out['n_params']} bfloat16 parameters ({out['param_bytes']} B) "
+          f"from seed 0 on cuda in {out['init_s']:.2f}s | {card}", flush=True)
+    inputs = []
+    for i, (batch, plen, gen) in enumerate(WHISPER_SERVE):
+        prompts = prompts_for(cfg, batch, plen, seed=1700 + i)
+        g = torch.Generator(device="cuda").manual_seed(1710 + i)
+        frames = torch.randn((batch, cfg.encoder_seq, cfg.d_model),
+                             generator=g, device="cuda")
+        inputs.append((prompts, frames))
+        greedy(params, prompts, cfg, 2, frames=frames)       # warm-up
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        first, toks, t_pre, t_dec = greedy(params, prompts, cfg, gen,
+                                           frames=frames)
+        launches = launch_counts()
+        fa = fa_launches(flash) | {"bidir": flash.bidir}
+        dhs = sorted({key[5] for key in flash.calls})
+        want = dict(WHISPER_LAUNCHES, windowed=0,
+                    routes={"wgmma": WHISPER_LAUNCHES["launches"]})
+        check(fa == want and dhs == [cfg.head_dim_]
+              and sum(launches.values()) == want["launches"],
+              f"whisper {batch}x{plen}: kernel launches {launches}, flash "
+              f"attention {fa} at dh {dhs}; want {want}")
+        for name, n in launches.items():
+            out["launches"][name] += n
+        out["bidir"] += fa["bidir"]
+        run = {"batch": batch, "prompt_len": plen, "gen_len": gen,
+               "frames": cfg.encoder_seq, "prefill_ms": t_pre * 1e3,
+               "decode_ms_per_step": t_dec * 1e3 / (gen - 1),
+               "tokens_per_s": batch * gen / (t_pre + t_dec),
+               "max_memory_allocated": torch.cuda.max_memory_allocated(),
+               "flash": fa, "tokens": toks.tolist()}
+        out["runs"].append(run)
+        print(f"[whisper] {batch} x {cfg.encoder_seq} frames, {plen}-token "
+              f"prompts, {gen} greedy tokens each: prefill "
+              f"{run['prefill_ms']:.2f} ms, decode "
+              f"{run['decode_ms_per_step']:.3f} ms/token (one per request "
+              f"per step), {run['tokens_per_s']:.2f} generated tokens/s, "
+              f"max_memory_allocated {run['max_memory_allocated']} B, "
+              f"flash_attention {fa['launches']} launches ({fa['bidir']} "
+              f"non-causal) by route {fa['routes']}", flush=True)
+    out["profile"] = profile_serving("whisper", params, cfg, out["runs"][0],
+                                     inputs[0][0], frames=inputs[0][1])
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) float32 parity at full depth, kernel against plain
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: float32 parity needs full float32")
+    cfg32 = dataclasses.replace(base, param_dtype="float32",
+                                compute_dtype="float32")
+    params = init_params(cfg32, seed=0)
+    prompts, frames = inputs[0]
+    zero_counts()
+    k_first, k_toks, _, _ = greedy(params, prompts, cfg32,
+                                   WHISPER_PARITY_GEN, frames=frames)
+    fa = fa_launches(flash) | {"bidir": flash.bidir}
+    check(fa == dict(WHISPER_LAUNCHES, windowed=0,
+                     routes={"simt": WHISPER_LAUNCHES["launches"]}),
+          f"whisper float32 parity: flash-attention launches {fa}")
+    kernel_mha = attn_mod.mha
+    attn_mod.mha = mha_ref
+    try:
+        zero_counts()
+        p_first, p_toks, _, _ = greedy(params, prompts, cfg32,
+                                       WHISPER_PARITY_GEN, frames=frames)
+        check(launch_counts()["flash_attention"] == 0,
+              "the plain whisper run launched the kernel")
+    finally:
+        attn_mod.mha = kernel_mha
+    logit_err = float((k_first - p_first).abs().max())
+    check(logit_err <= SERVE_LOGITS_ATOL,
+          f"whisper float32: last-position logits kernel vs plain differ by "
+          f"{logit_err} > {SERVE_LOGITS_ATOL}")
+    check(torch.equal(k_toks, p_toks),
+          "whisper float32: greedy tokens differ between kernel and plain")
+    out["parity"] = {"prompt": list(prompts.shape), "gen": WHISPER_PARITY_GEN,
+                     "float32_logits_max_abs_err": logit_err,
+                     "atol": SERVE_LOGITS_ATOL, "float32_tokens_equal": True,
+                     "float32_flash": fa}
+    print(f"[whisper parity] full depth, float32 parameters and compute, "
+          f"{prompts.shape[0]} x {cfg32.encoder_seq} frames, "
+          f"{prompts.shape[1]}-token prompts, {WHISPER_PARITY_GEN} greedy "
+          f"tokens: equal with the kernel ({fa['launches']} launches on "
+          f"{fa['routes']}) and the plain version; last-position logits "
+          f"max |diff| {logit_err:.3g} <= {SERVE_LOGITS_ATOL}", flush=True)
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -3360,6 +3663,11 @@ def main():
     details["recurrent"] = recurrent_phase(card)
     t_rec = time.perf_counter() - t0
     print(f"[time] phase 16 (zamba2, xlstm) {t_rec:.1f}s", flush=True)
+    # 17. whisper-small (after phase 16's are freed)
+    t0 = time.perf_counter()
+    details["whisper"] = whisper_phase(card)
+    t_whisper = time.perf_counter() - t0
+    print(f"[time] phase 17 (whisper) {t_whisper:.1f}s", flush=True)
 
     # 8-9. captured bitstreams and a generator-fleet campaign, at full size
     tmp = tempfile.mkdtemp(prefix="chip_smoke_capture_")
@@ -3392,7 +3700,7 @@ def main():
                           "elastic_faults": t3 - t2, "screening": t4 - t3,
                           "analysis": t5 - t4, "gemma2": t_gemma2,
                           "dense_archs": t_dense, "moe": t_moe,
-                          "recurrent": t_rec}
+                          "recurrent": t_rec, "whisper": t_whisper}
     print(f"[time] phase 8 (captured) {t1 - t0:.1f}s, phase 9 (campaign) "
           f"{t2 - t1:.1f}s, phase 10 (elastic, faults) {t3 - t2:.1f}s, "
           f"phase 11 (screening) {t4 - t3:.1f}s, phase 12 (analysis) "
@@ -3400,9 +3708,9 @@ def main():
           f"{t_gemma2:.1f}s, phase 14 (glm4, chameleon, nemotron, after "
           f"13) {t_dense:.1f}s, phase 15 (granite-moe, deepseek-v2, after "
           f"14) {t_moe:.1f}s, phase 16 (zamba2, xlstm, after 15) "
-          f"{t_rec:.1f}s, "
-          f"{t0 - t_start - t_gemma2 - t_dense - t_moe - t_rec:.1f}s before "
-          f"phase 8 besides them", flush=True)
+          f"{t_rec:.1f}s, phase 17 (whisper, after 16) {t_whisper:.1f}s, "
+          f"{t0 - t_start - t_gemma2 - t_dense - t_moe - t_rec - t_whisper:.1f}"
+          f"s before phase 8 besides them", flush=True)
 
     # the kernels at the shapes their main paths gave them
     main_calls = calls["bigcrush"]
@@ -3461,12 +3769,14 @@ def main():
                 details["dense_archs"]["launches"][name],
             "launches_moe": details["moe"]["launches"][name],
             "launches_recurrent": details["recurrent"]["launches"][name],
+            "launches_whisper": details["whisper"]["launches"][name],
             "max_abs_err": max(c["max_abs_err"] for c in
                                cases + details["parity"][name]
                                + (details["gemma2_attention"]
                                   + details["dense_archs"]["attention"]
                                   + details["moe"]["attention"]
                                   + details["recurrent"]["attention"]
+                                  + details["whisper"]["attention"]
                                   if name == "flash_attention" else [])),
             "ms": total("ms"), "device_ms": total("device_ms"),
             "plain_ms": total("plain_ms"),
@@ -3474,6 +3784,9 @@ def main():
             "bound_by": ("bytes" if bytes_bound * 2 >= total("bound_ms")
                          else "operations"),
             "library_ms": total("library_ms")})
+        if name == "flash_attention":
+            # its non-causal launches in phase 17 (encoder and cross)
+            rows[-1]["bidir"] = details["whisper"]["bidir"]
     details["kernels"] = rows
     details["card"] = card
     details["seconds"] = time.perf_counter() - t_start

@@ -1,15 +1,14 @@
-# repro: quarantine -- growth-seed LM serving path (the dense, vlm, moe, ssm and hybrid families); nothing in the battery system imports it
+# repro: quarantine -- growth-seed LM serving path (every family of the reference); nothing in the battery system imports it
 """Model configuration of the LM serving path (from the reference's
 ``repro/common/config.py``: ``pad_to``, ``MoEConfig``, ``MLAConfig``,
-``SSMConfig``, ``XLSTMConfig`` and the 31 of ``ModelConfig``'s 38 fields
+``SSMConfig``, ``XLSTMConfig`` and the 34 of ``ModelConfig``'s 38 fields
 that the port reads).
 
-The reference's other 7 fields describe whisper's encoder-decoder
-(``is_encoder_decoder``, ``n_encoder_layers``, ``encoder_seq``) and
-training knobs (remat, Adam's dtype, scan groups, gradient accumulation)
-that the port does not run yet; each comes back in the slice that first
-reads it. Until then a configuration that needs one cannot be written
-here, so none is silently ignored.
+The reference's other 4 fields are training knobs (remat, Adam's dtype,
+scan groups, gradient accumulation) that the port does not run yet;
+each comes back in the slice that first reads it. Until then a
+configuration that needs one cannot be written here, so none is
+silently ignored.
 """
 from __future__ import annotations
 
@@ -66,7 +65,8 @@ class XLSTMConfig:
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     arch_id: str
-    # dense | vlm (run as dense) | moe | ssm (xlstm) | hybrid (zamba2)
+    # dense | vlm (run as dense) | moe | audio (whisper) | ssm (xlstm) |
+    # hybrid (zamba2)
     family: str
     n_layers: int
     d_model: int
@@ -76,7 +76,7 @@ class ModelConfig:
     vocab_size: int
 
     head_dim: Optional[int] = None     # default d_model // n_heads
-    act: str = "silu"                  # silu (SwiGLU) | gelu (GeGLU) | relu2
+    act: str = "silu"                  # silu (SwiGLU) | gelu (GeGLU) | gelu_plain | relu2
     gated_mlp: bool = True
     qkv_bias: bool = False
     qk_norm: bool = False              # Chameleon
@@ -101,9 +101,15 @@ class ModelConfig:
     # hybrid (zamba2): one shared attn+MLP block applied every k ssm layers
     shared_attn_every: int = 0
 
-    # inputs: token ids, or (fused, vlm) ids over the fused text and image
-    # vocabulary; the reference's "frames" (whisper) is not ported
-    frontend: str = "tokens"           # tokens | fused
+    # encoder-decoder (whisper)
+    is_encoder_decoder: bool = False
+    n_encoder_layers: int = 0
+    encoder_seq: int = 0               # fixed encoder frame count (stub frontend)
+
+    # inputs: token ids; (fused, vlm) ids over the fused text and image
+    # vocabulary; or (frames, audio) decoder token ids beside precomputed
+    # encoder frame embeddings (the reference's stub frontend)
+    frontend: str = "tokens"           # tokens | fused | frames
 
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"

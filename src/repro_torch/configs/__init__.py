@@ -2,11 +2,11 @@
 """Architecture registry: ``get_config(arch_id)`` / ``get_reduced(arch_id)``
 (port of ``repro/configs``).
 
-The dense, vlm, moe, ssm and hybrid architectures are ported
-(qwen2-1.5b, gemma2-27b, glm4-9b, chameleon-34b, nemotron-4-340b,
-granite-moe-1b-a400m, deepseek-v2-236b, xlstm-1.3b, zamba2-1.2b). The
-reference's one other architecture, whisper-small's encoder-decoder,
-raises a ``KeyError`` that says so (ROADMAP.md, queue 1, item 4).
+Every architecture of the reference is ported: the dense, vlm, moe,
+audio, ssm and hybrid families (qwen2-1.5b, gemma2-27b, glm4-9b,
+chameleon-34b, nemotron-4-340b, granite-moe-1b-a400m, deepseek-v2-236b,
+whisper-small, xlstm-1.3b, zamba2-1.2b). ``NOT_PORTED`` is empty; an
+architecture the reference lacks raises a ``KeyError``.
 """
 from __future__ import annotations
 
@@ -20,18 +20,17 @@ _MODULES = {
     "nemotron-4-340b": "nemotron_4_340b",
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "deepseek-v2-236b": "deepseek_v2_236b",
+    "whisper-small": "whisper_small",
     "xlstm-1.3b": "xlstm_1_3b",
     "zamba2-1.2b": "zamba2_1_2b",
 }
-NOT_PORTED = ("whisper-small",)
+# the reference's architectures the port does not run yet: none
+NOT_PORTED = ()
 
 ARCH_IDS = tuple(_MODULES)
 
 
 def _mod(arch_id: str):
-    if arch_id in NOT_PORTED:
-        raise KeyError(f"arch {arch_id!r} is not ported yet (see ROADMAP.md, "
-                       f"queue 1 item 4); ported: {sorted(_MODULES)}")
     if arch_id not in _MODULES:
         raise KeyError(f"unknown arch {arch_id!r}; ported: {sorted(_MODULES)}")
     return importlib.import_module(f"repro_torch.configs.{_MODULES[arch_id]}")

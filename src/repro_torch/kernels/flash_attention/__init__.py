@@ -1,3 +1,3 @@
 # repro: quarantine -- growth-seed attention kernel; unrelated to the TestU01 battery kernels
-"""Causal flash attention, forward (port of
+"""Flash attention, forward, causal or not (port of
 ``repro/kernels/flash_attention``)."""

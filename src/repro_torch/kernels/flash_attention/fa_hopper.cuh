@@ -1,4 +1,4 @@
-// Causal flash attention, forward, bfloat16, on Hopper's tensor cores
+// Flash attention, forward, bfloat16, on Hopper's tensor cores
 // (sm_90a: TMA, mbarriers, wgmma, setmaxnreg). Included by
 // flash_attention.cu, whose entry repro_flash_attention_wgmma launches it.
 //
@@ -10,9 +10,16 @@
 //   o = softmax(mask(softcap(q . k^T * scale))) . v
 //
 // with an online softmax (running max m, sum l and accumulator acc, all
-// float32), the causal mask qpos >= kpos, softcap tanh(s / cap) * cap when
+// float32), the mask kpos < kv_len (the real keys of a padded T) and, in
+// the causal form, qpos >= kpos, softcap tanh(s / cap) * cap when
 // cap != 0 (before the mask), and the finalize acc / max(l, 1e-37) cast to
-// bfloat16. With window w > 0 the mask also drops keys with
+// bfloat16. The non-causal form (causal = 0: the Pallas kernel's
+// causal=False; whisper's encoder and cross attention, 1,500 keys padded
+// to 1,536) walks ceil(kv_len / 128) tiles from tile 0 and masks only the
+// last one, where kv_len % 128 != 0, in the log2 domain after the softcap
+// as the causal mask is; producer and consumer walk the same n_kt, so the
+// ring's stages and phases stay in step. With window w > 0 (causal form
+// only) the mask also drops keys with
 // qpos - kpos >= w (the reference's local attention, which the reference
 // computes with XLA, not with the Pallas kernel); a window of at least S
 // is the causal mask bit for bit. gemma2-27b's 23 local layers run here
@@ -53,8 +60,9 @@
 // * Softmax on the accumulator fragment in registers: the scale folded
 //   into log2(e) and exp2f; row max reduced over the four lanes that hold
 //   a row (shuffles 1, 2); the row sum kept per thread and reduced once at
-//   the end. Only the diagonal tile is masked; tiles past it are skipped
-//   (key 0 is unmasked for every row, so skipping only reorders rounding).
+//   the end. Only the diagonal tile (and the tile that holds key kv_len,
+//   when kv_len < T) is masked; tiles past either are skipped (key 0 is
+//   unmasked for every row, so skipping only reorders rounding).
 // * Window: the kv loop starts at kt_lo = max(0, q0 - w + 1) / 128, the
 //   tile of the block's first query's first key; the tiles before it are
 //   masked for every row and skipped. Besides the diagonal tile, the
@@ -122,7 +130,9 @@ struct Params {
   float cap_inv;         // scale / softcap (softcap != 0)
   float cap_log2;        // softcap * log2(e)
   int softcap;           // 0: no softcap
-  int window;            // 0: causal; w > 0: keep 0 <= qpos - kpos < w
+  int causal;            // 1: keep kpos <= qpos; 0: no diagonal
+  int kv_len;            // keep kpos < kv_len, 0 < kv_len <= T
+  int window;            // 0: no window; w > 0: keep qpos - kpos < w
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -323,8 +333,8 @@ __device__ __forceinline__ void consume(uint32_t base, const Params& p,
     wgmma_wait_all();
     fence_regs(s);
 
-    // scores -> log2 domain, softcap, the mask of the diagonal tile and
-    // of the window's edge tiles
+    // scores -> log2 domain, softcap, the mask of the diagonal tile, of
+    // the window's edge tiles and of the tile that holds key kv_len
     const int k0 = kt * kBK;
     if (p.softcap) {
 #pragma unroll
@@ -333,13 +343,14 @@ __device__ __forceinline__ void consume(uint32_t base, const Params& p,
 #pragma unroll
       for (int i = 0; i < 64; ++i) s[i] *= p.scale_log2;
     }
-    if (k0 + kBK - 1 > q0 ||
+    if ((p.causal && k0 + kBK - 1 > q0) || k0 + kBK > p.kv_len ||
         (p.window > 0 && q0 + kBQ - 1 - k0 >= p.window)) {
 #pragma unroll
       for (int i = 0; i < 64; ++i) {
         const int qpos = q0 + row + 8 * ((i >> 1) & 1);
         const int kpos = k0 + 8 * (i >> 2) + col + (i & 1);
-        if (qpos < kpos || (p.window > 0 && qpos - kpos >= p.window))
+        if ((p.causal && qpos < kpos) || kpos >= p.kv_len ||
+            (p.window > 0 && qpos - kpos >= p.window))
           s[i] = kNeg;
       }
     }
@@ -434,10 +445,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int b = bh / p.H, h = bh - b * p.H;
   const int kh = h / (p.H / p.KH);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;  // heaviest first
-  // kv tiles from the window's first key (0 when causal) to the diagonal
+  // kv tiles from the window's first key (0 without a window) to the last
+  // real key, and in the causal form to the diagonal; the producer and
+  // the consumers walk this same range
   const int kt_lo =
       p.window > 0 && q0 - p.window + 1 > 0 ? (q0 - p.window + 1) / kBK : 0;
-  const int n_kt = min(p.T / kBK, (q0 + kBQ - 1) / kBK + 1);
+  int n_kt = (p.kv_len + kBK - 1) / kBK;
+  if (p.causal) n_kt = min(n_kt, (q0 + kBQ - 1) / kBK + 1);
 
   if (threadIdx.x == 0) {
     bar_init(bar, 1);                          // q_full
@@ -526,8 +540,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int S, int T, int H, int KH, long long qsb,
                    long long qss, long long qsh, long long ksb, long long kss,
                    long long ksh, long long vsb, long long vss, long long vsh,
-                   float scale, float softcap, int window,
-                   cudaStream_t stream) {
+                   float scale, float softcap, int causal, int kv_len,
+                   int window, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!tensor_map(&tq, q, B, S, H, DH, qsb, qss, qsh) ||
       !tensor_map(&tk, k, B, T, KH, DH, ksb, kss, ksh) ||
@@ -539,7 +553,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   Params p{static_cast<__nv_bfloat16*>(o), S, T, H, KH, scale * kLog2e,
            softcap != 0.f ? scale / softcap : 0.f, softcap * kLog2e,
-           softcap != 0.f, window};
+           softcap != 0.f, causal, kv_len, window};
   dim3 grid(B * H, S / kBQ);
   fa_wgmma<DH><<<grid, kThreads, smem, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();

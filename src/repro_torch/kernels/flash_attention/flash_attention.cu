@@ -1,4 +1,4 @@
-// Causal flash attention, forward, for Hopper (sm_90a): the CUDA-core
+// Flash attention, forward, for Hopper (sm_90a): the CUDA-core
 // route. The launcher (kernel.py) takes it for float32, for bfloat16 at
 // head dims other than 64 and 128, and for any call whose v head dim dv
 // differs from q's and k's dh; bfloat16 at dh = dv = 64 or 128 takes the
@@ -14,10 +14,18 @@
 //   o = softmax(mask(softcap(q . k^T * scale))) . v
 //
 // with an online softmax over kv tiles: a running max m, a running sum l
-// and an accumulator acc, all float32; the causal mask is qpos >= kpos
-// with the mask value NEG; softcap is tanh(s / cap) * cap when cap != 0,
-// applied before the mask; the row is finalized as acc / max(l, 1e-37)
-// and cast to q's type.
+// and an accumulator acc, all float32; the mask keeps kpos < kv_len (the
+// real keys of a T padded to a multiple of 128) and, in the causal form,
+// qpos >= kpos, with the mask value NEG; softcap is tanh(s / cap) * cap
+// when cap != 0, applied before the mask; the row is finalized as
+// acc / max(l, 1e-37) and cast to q's type.
+//
+// Non-causal form (causal = 0; the Pallas kernel's causal=False, the
+// reference's mode="bidir": whisper's encoder self-attention and its
+// decoder's cross attention): the kv loop walks ceil(kv_len / BK) tiles
+// from tile 0, and keys at kpos >= kv_len (in the last tile only) get
+// NEG. Every row keeps key 0, so the first tile gives each row a real
+// max, and a masked key's p = exp(NEG - m) is exactly 0. No window.
 //
 // Sliding window (window w > 0; the reference's local attention, which
 // it computes with XLA, models/attention.py _mask_bias, and not with the
@@ -117,7 +125,9 @@ struct Args {
   int S, T, H, KH, dh, dv;
   long long qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh;
   float scale, softcap;
-  int window;  // 0: causal; w > 0: keep 0 <= qpos - kpos < w
+  int causal;  // 1: keep kpos <= qpos; 0: no diagonal
+  int kv_len;  // keep kpos < kv_len, 0 < kv_len <= T
+  int window;  // 0: no window; w > 0 (causal only): keep qpos - kpos < w
 };
 
 // Row stride of a shared tile: DH elements plus one 32-bit word.
@@ -180,12 +190,13 @@ __global__ void __launch_bounds__(kThreads) fa_fwd(Args a) {
 
   load_tile<T, DQK>(sQ, qp, q0, a.qss, a.dh, kBQ);
 
-  // kv tiles from the window's first key (0 when causal) up to the
-  // causal diagonal
+  // kv tiles from the window's first key (0 without a window) up to the
+  // last real key, and in the causal form up to the diagonal
   const int kt_lo = a.window > 0 && q0 - a.window + 1 > 0
                         ? (q0 - a.window + 1) / kBK
                         : 0;
-  const int n_kt = min(a.T / kBK, (q0 + kBQ - 1) / kBK + 1);
+  int n_kt = (a.kv_len + kBK - 1) / kBK;
+  if (a.causal) n_kt = min(n_kt, (q0 + kBQ - 1) / kBK + 1);
   for (int kt = kt_lo; kt < n_kt; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's sK, sV and sP are consumed
@@ -220,7 +231,8 @@ __global__ void __launch_bounds__(kThreads) fa_fwd(Args a) {
         float x = s[i][j] * a.scale;
         if (a.softcap != 0.f) x = tanhf(x / a.softcap) * a.softcap;
         const int kpos = k0 + tx + 16 * j;
-        if (qpos < kpos || (a.window > 0 && qpos - kpos >= a.window))
+        if ((a.causal && qpos < kpos) || kpos >= a.kv_len ||
+            (a.window > 0 && qpos - kpos >= a.window))
           x = kNeg;
         s[i][j] = x;
         mx = fmaxf(mx, x);
@@ -297,28 +309,37 @@ cudaError_t launch_dh(const Args& a, int B, cudaStream_t s) {
   return launch<T, 192, 192>(a, B, s);
 }
 
+// The mask arguments both entries take: causal 0 or 1, 0 < kv_len <= T,
+// window >= 0, and a window only in the causal form over all T keys.
+bool valid_mask(int T, int causal, int kv_len, int window) {
+  return (causal == 0 || causal == 1) && kv_len > 0 && kv_len <= T &&
+         window >= 0 && (window == 0 || (causal && kv_len == T));
+}
+
 }  // namespace
 
 // q: (B, S, H, dh), k: (B, T, KH, dh) and v: (B, T, KH, dv), each with
 // the given strides (in elements) for its first three dims and a
 // contiguous last dim; o: contiguous (B, S, H, dv). dtype: 0 float32,
-// 1 bfloat16. The mask is causal (qpos >= kpos), and with window > 0 also
-// qpos - kpos < window (the forms a caller of the port needs; window 0 is
-// causal alone). S and T are multiples of 128, H a multiple of KH,
-// 0 < dv <= dh <= 192, window >= 0.
+// 1 bfloat16. The mask keeps kpos < kv_len, 0 < kv_len <= T; with
+// causal = 1 also qpos >= kpos, and with window > 0 also qpos - kpos <
+// window (window 0 is no window; a window needs causal = 1 and kv_len =
+// T). causal = 0 is the non-causal form. S and T are multiples of 128, H
+// a multiple of KH, 0 < dv <= dh <= 192, window >= 0.
 // Returns the CUDA error code: 0 on success, cudaErrorInvalidValue on
 // arguments it does not take. Launches on `stream`.
 extern "C" int repro_flash_attention(
     int dtype, const void* q, const void* k, const void* v, void* o, int B,
     int S, int T, int H, int KH, int dh, int dv, long long qsb,
     long long qss, long long qsh, long long ksb, long long kss, long long ksh,
-    long long vsb, long long vss, long long vsh, float scale, float softcap,
-    int window, void* stream) {
+    long long vsb, long long vss, long long vsh, int causal, int kv_len,
+    float scale, float softcap, int window, void* stream) {
   if (B <= 0 || S % 128 || T % 128 || S <= 0 || T <= 0 || KH <= 0 ||
-      H % KH || dh <= 0 || dh > 192 || dv <= 0 || dv > dh || window < 0)
+      H % KH || dh <= 0 || dh > 192 || dv <= 0 || dv > dh ||
+      !valid_mask(T, causal, kv_len, window))
     return cudaErrorInvalidValue;
   Args a{q, k, v, o, S, T, H, KH, dh, dv, qsb, qss, qsh, ksb, kss, ksh,
-         vsb, vss, vsh, scale, softcap, window};
+         vsb, vss, vsh, scale, softcap, causal, kv_len, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return launch_dh<float>(a, B, s);
@@ -336,11 +357,11 @@ extern "C" int repro_flash_attention_wgmma(
     int dtype, const void* q, const void* k, const void* v, void* o, int B,
     int S, int T, int H, int KH, int dh, int dv, long long qsb,
     long long qss, long long qsh, long long ksb, long long kss, long long ksh,
-    long long vsb, long long vss, long long vsh, float scale, float softcap,
-    int window, void* stream) {
+    long long vsb, long long vss, long long vsh, int causal, int kv_len,
+    float scale, float softcap, int window, void* stream) {
   if (dtype != 1 || B <= 0 || S % 128 || T % 128 || S <= 0 || T <= 0 ||
       KH <= 0 || H % KH || (dh != 64 && dh != 128) || dv != dh ||
-      window < 0)
+      !valid_mask(T, causal, kv_len, window))
     return cudaErrorInvalidValue;
   for (const void* ptr : {q, k, v})
     if (reinterpret_cast<uintptr_t>(ptr) % 16) return cudaErrorInvalidValue;
@@ -350,8 +371,8 @@ extern "C" int repro_flash_attention_wgmma(
   return dh == 64
              ? fa_hopper::launch<64>(q, k, v, o, B, S, T, H, KH, qsb, qss, qsh,
                                      ksb, kss, ksh, vsb, vss, vsh, scale,
-                                     softcap, window, s)
+                                     softcap, causal, kv_len, window, s)
              : fa_hopper::launch<128>(q, k, v, o, B, S, T, H, KH, qsb, qss,
                                       qsh, ksb, kss, ksh, vsb, vss, vsh, scale,
-                                      softcap, window, s);
+                                      softcap, causal, kv_len, window, s);
 }

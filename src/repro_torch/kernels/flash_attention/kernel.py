@@ -14,12 +14,19 @@ of ``fa_hopper.cuh``, for bfloat16 at dh = dv = 64 or 128; ``"simt"``,
 the CUDA-core kernel, for float32 (tensor cores would round it to TF32),
 for bfloat16 at other head dims up to ``MAX_HEAD_DIM`` (192,
 nemotron-4-340b's), and for any call with ``dv != dh``.
+
+Both routes take the causal form (the default) and the Pallas kernel's
+non-causal one (``causal=False``: whisper's encoder and cross
+attention), and a count of real keys ``kv_len`` (default T): keys at
+``kpos >= kv_len``, a ragged T's padding, are masked.
+
 ``flash_attention.launches`` counts launches,
 ``flash_attention.calls`` counts them by
 ``(B, S, T, H, K, dh, dtype, route)`` (dh is q's and k's),
 ``flash_attention.windowed`` counts those given a sliding window
-(``window`` > 0) and ``flash_attention.split_dv`` those with
-``dv != dh``; nothing else touches them.
+(``window`` > 0), ``flash_attention.split_dv`` those with
+``dv != dh`` and ``flash_attention.bidir`` the non-causal ones; nothing
+else touches them.
 """
 from __future__ import annotations
 
@@ -54,6 +61,7 @@ def _entry(kind: str):
     fn = getattr(build.load("flash_attention"), _SYMBOLS[kind])
     fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
                    + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 9
+                   + [ctypes.c_int] * 2
                    + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
                       ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -61,10 +69,12 @@ def _entry(kind: str):
 
 
 def _call(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-          scale: float, softcap: float, window: int = 0):
+          scale: float, softcap: float, window: int = 0, causal: bool = True,
+          kv_len: int = None):
     """Launch route ``kind`` on inputs that ``flash_attention`` has
     checked, on q's current stream, uncounted -> (CUDA error code, o).
-    v's head dim goes to the kernel right after q's and k's ``dh``."""
+    v's head dim goes to the kernel right after q's and k's ``dh``;
+    ``causal`` and ``kv_len`` (default T) right after the strides."""
     b, s, h, dh = q.shape
     dv = v.shape[3]
     strides = (*q.stride()[:3], *k.stride()[:3], *v.stride()[:3])
@@ -77,26 +87,30 @@ def _call(kind: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         rc = _entry(kind)(DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
                           v.data_ptr(), o.data_ptr(), b, s, k.shape[1], h,
-                          k.shape[2], dh, dv, *strides, float(scale),
-                          float(softcap), int(window),
+                          k.shape[2], dh, dv, *strides, int(bool(causal)),
+                          int(k.shape[1] if kv_len is None else kv_len),
+                          float(scale), float(softcap), int(window),
                           torch.cuda.current_stream(q.device).cuda_stream)
     return rc, o
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    scale: float, softcap: float = 0.0,
-                    window: int = 0) -> torch.Tensor:
-    """Causal attention. q: (B, S, H, dh), k: (B, T, K, dh), v: (B, T,
-    K, dv) CUDA tensors, all float32 or all bfloat16, H % K == 0, S and T
+                    scale: float, softcap: float = 0.0, window: int = 0,
+                    causal: bool = True, kv_len: int = None) -> torch.Tensor:
+    """Attention. q: (B, S, H, dh), k: (B, T, K, dh), v: (B, T, K, dv)
+    CUDA tensors, all float32 or all bfloat16, H % K == 0, S and T
     multiples of BLOCK, 0 < dv <= dh <= MAX_HEAD_DIM (192), each with a
     contiguous last dim -> o: contiguous (B, S, H, dv) in q's dtype.
-    ``window`` 0 is the causal mask; w > 0 keeps only the keys with
-    ``0 <= qpos - kpos < w`` (a window of at least S is the causal mask),
-    and needs S <= T. On the ``wgmma`` route the tensors must also start
-    on 16 bytes and have strides of whole 16 bytes (TMA)."""
+    Keys at ``kpos >= kv_len`` (default T; 0 < kv_len <= T) are masked.
+    ``causal`` also masks ``kpos > qpos``; ``causal=False`` is the
+    non-causal form. ``window`` 0 is no window; w > 0 (causal form, kv_len
+    = T) keeps only the keys with ``0 <= qpos - kpos < w`` (a window of at
+    least S is the causal mask), and needs S <= T. On the ``wgmma`` route
+    the tensors must also start on 16 bytes and have strides of whole 16
+    bytes (TMA)."""
     if not 0 <= window < 2 ** 31:
-        raise ValueError(f"window {window} is not in [0, 2^31) (0 is "
-                         f"causal)")
+        raise ValueError(f"window {window} is not in [0, 2^31) (0 is no "
+                         f"window)")
     strides = []
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in DTYPES or t.dtype != q.dtype:
@@ -116,6 +130,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"shapes q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)} do not fit (B,S,H,dh) / "
                          f"(B,T,K,dh) / (B,T,K,dv) with 0 < dv <= dh")
+    kv_len = t_len if kv_len is None else kv_len
+    if not 0 < kv_len <= t_len:
+        raise ValueError(f"kv_len {kv_len} is not in (0, T={t_len}]")
+    if window and (not causal or kv_len != t_len):
+        raise ValueError(f"a window needs the causal form over all T keys, "
+                         f"got causal={causal}, kv_len={kv_len}, T={t_len}")
     if window and s > t_len:
         raise ValueError(f"a window needs S <= T, got S={s}, T={t_len}: "
                          f"a query past T + window - 1 has no key")
@@ -137,7 +157,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"the tensor-core route needs q, k, v on a 16-byte "
                          f"boundary with strides of whole 16 bytes, got "
                          f"strides {q.stride()}, {k.stride()}, {v.stride()}")
-    rc, o = _call(kind, q, k, v, scale, softcap, window)
+    rc, o = _call(kind, q, k, v, scale, softcap, window, causal, kv_len)
     if rc:
         raise RuntimeError(f"flash_attention kernel ({kind}) launch failed: "
                            f"CUDA error {rc}")
@@ -147,6 +167,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         flash_attention.windowed += 1
     if dv != dh:
         flash_attention.split_dv += 1
+    if not causal:
+        flash_attention.bidir += 1
     return o
 
 
@@ -154,3 +176,4 @@ flash_attention.launches = 0
 flash_attention.calls = collections.Counter()
 flash_attention.windowed = 0
 flash_attention.split_dv = 0
+flash_attention.bidir = 0

@@ -5,11 +5,14 @@ layout with GQA head grouping.
 
 The reference leaves padding to its callers and asserts S, T % 128 == 0;
 here ``mha`` pads S and T up to a multiple of 128 itself and slices the
-result, so prompts of any length work. Under the causal mask that is
-exact: padded keys sit after every real query, and padded query rows are
-dropped. A sliding window keeps the causal bound (it only adds a lower
-one), so padded keys stay masked for every real query under it too. A
-CUDA tensor goes to the kernel, a CPU tensor to the plain version.
+result, so prompts and frame counts of any length work. Under the causal
+mask that is exact when S <= T: padded keys sit after every real query,
+and padded query rows are dropped. A sliding window keeps the causal
+bound (it only adds a lower one), so padded keys stay masked for every
+real query under it too. The non-causal form (the reference's
+``mode="bidir"``) passes the real key count ``kv_len = T`` to the kernel,
+which masks the padded keys, so it takes any S and T. A CUDA tensor goes
+to the kernel, a CPU tensor to the plain version.
 """
 from __future__ import annotations
 
@@ -24,29 +27,36 @@ def _pad_seq(x, n):
     return x if x.shape[1] == n else F.pad(x, (0, 0, 0, 0, 0, n - x.shape[1]))
 
 
-def mha(q, k, v, *, scale, softcap=0.0, window=0):
-    """Causal attention. q: (B, S, H, dh); k: (B, T, K, dh), v: (B, T,
-    K, dv) with H % K == 0 and dv <= dh -> (B, S, H, dv) in q's dtype.
-    ``window`` 0 is the causal mask; w > 0 keeps the keys with
-    ``0 <= qpos - kpos < w`` (the reference's local attention). The
-    reference's non-causal form has no caller in the port; neither the
-    kernel nor this wrapper takes it."""
+def mha(q, k, v, *, scale, softcap=0.0, window=0, causal=True):
+    """Attention. q: (B, S, H, dh); k: (B, T, K, dh), v: (B, T, K, dv)
+    with H % K == 0 and dv <= dh -> (B, S, H, dv) in q's dtype.
+    ``causal`` keeps the keys with ``kpos <= qpos``, and ``window`` w > 0
+    with it those with ``0 <= qpos - kpos < w`` (the reference's local
+    attention); ``causal=False`` keeps every key (the Pallas kernel's
+    non-causal form: whisper's encoder self-attention and its decoder's
+    cross attention) and takes no window."""
     if window < 0:
-        raise ValueError(f"window {window} is negative (0 is causal)")
+        raise ValueError(f"window {window} is negative (0 is no window)")
+    if window and not causal:
+        raise ValueError("a sliding window needs the causal form")
     s, t = q.shape[1], k.shape[1]
     sp, tp = -(-s // BLOCK) * BLOCK, -(-t // BLOCK) * BLOCK
     if window and s > t:
         raise ValueError(f"a window needs S <= T, got S={s}, T={t}: a "
                          f"query past T + window - 1 has no key")
-    if tp != t and s > t:
+    if causal and tp != t and s > t:
         raise ValueError(f"T={t} is not a multiple of {BLOCK}, and padded "
                          f"keys would be attended (S={s} > T)")
+    # the causal form masks padded keys by position; the non-causal one
+    # by the key count
+    kv_len = tp if causal else t
     q, k, v = _pad_seq(q, sp), _pad_seq(k, tp), _pad_seq(v, tp)
     if q.is_cuda:
         o = flash_attention(q, k, v, scale=scale, softcap=softcap,
-                            window=window)
+                            window=window, causal=causal, kv_len=kv_len)
     elif q.device.type == "cpu":
-        o = mha_ref(q, k, v, scale=scale, softcap=softcap, window=window)
+        o = mha_ref(q, k, v, scale=scale, softcap=softcap, window=window,
+                    causal=causal, kv_len=kv_len)
     else:
         raise ValueError(f"no flash-attention kernel for device {q.device}")
     return o[:, :s]

@@ -1,7 +1,8 @@
-# repro: quarantine -- growth-seed LM serving path (the dense, vlm and moe families); nothing in the battery system imports it
+# repro: quarantine -- growth-seed LM serving path (every family with attention); nothing in the battery system imports it
 """Attention: GQA (projections with biases and qk-norm where the config
 has them, full-sequence causal attention, global or local over a sliding
-window, and one-token decode) and DeepSeek-V2's multi-head latent
+window, whisper's non-causal encoder and cross attention, one-token
+decode and cross-attention decode) and DeepSeek-V2's multi-head latent
 attention (port of ``repro/models/attention.py``).
 
 Full-sequence attention goes through ``kernels.flash_attention.ops.mha``
@@ -14,9 +15,11 @@ TPU-hardware twin is the Pallas kernel that the CUDA kernel ports (the
 Pallas kernel has no window; the reference's local layers never reach
 it). MLA's prefill builds every head's k (``[k_nope, k_rope]``, 192
 wide at full size) and v (128) from the shared latent and calls the
-same ``mha`` with a v head dim of its own. Bidirectional and cross
-attention and custom positions have no configuration in the port yet
-and raise (ROADMAP.md, queue 1).
+same ``mha`` with a v head dim of its own. ``mode="bidir"`` (whisper's
+encoder, and its cross attention, whose k and v come from the encoder
+output ``kv_x`` and get no rope) is the kernel's non-causal form,
+``mha(causal=False)``, which masks the keys of a ragged T by their
+count. Custom positions have no configuration in the port and raise.
 
 Decode attention is plain torch over the cache, as the reference
 computes it outside any kernel: GQA over the k/v cache, MLA in the
@@ -24,7 +27,8 @@ reference's absorbed form over the latent cache (``ckv`` and the shared
 rope key ``kr``). Both write the new token's entries into the cache in
 place, where the reference returns new arrays, and score positions
 ``0..pos`` only (the reference scores every cached position and masks
-the rest to weights of exactly 0).
+the rest to weights of exactly 0). Whisper's cross-attention decode
+scores the fixed encoder cache, every row.
 """
 from __future__ import annotations
 
@@ -36,6 +40,7 @@ from repro_torch.models.common import (apply_rope, rmsnorm, rope_angles,
 from repro_torch.models.params import P
 
 KINDS = ("global", "local")
+MODES = ("causal", "bidir")
 # qk-norm's eps: the reference's ``_rmsnorm_vec`` default, not cfg.norm_eps
 QK_NORM_EPS = 1e-6
 
@@ -76,13 +81,15 @@ def spec_mla(cfg):
     }
 
 
-def _project_qkv(p, x, cfg):
-    """x: (B, S, D) -> q (B, S, H, dh), k and v (B, S, K, dh), biased and
-    then, with qk-norm, each head vector of q and k RMS-normed (float32
-    inside, ``1 + w``), before rope as in the reference."""
+def _project_qkv(p, x, cfg, kv_x=None):
+    """x: (B, S, D) -> q (B, S, H, dh), k and v (B, T, K, dh) from
+    ``kv_x`` (B, T, D) (default x), biased and then, with qk-norm, each
+    head vector of q and k RMS-normed (float32 inside, ``1 + w``), before
+    rope as in the reference."""
+    src = x if kv_x is None else kv_x
     q = torch.einsum("bsd,dhe->bshe", x, p["wq"].to(x.dtype))
-    k = torch.einsum("bsd,dke->bske", x, p["wk"].to(x.dtype))
-    v = torch.einsum("bsd,dke->bske", x, p["wv"].to(x.dtype))
+    k = torch.einsum("bsd,dke->bske", src, p["wk"].to(x.dtype))
+    v = torch.einsum("bsd,dke->bske", src, p["wv"].to(x.dtype))
     if "bq" in p:
         q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
@@ -113,25 +120,29 @@ def _window(cfg, kind):
 
 def attention(p, x, cfg, *, kind="global", mode="causal", positions=None,
               kv_x=None, kv_positions=None, return_kv=False):
-    """Full-sequence causal attention (prefill / forward), global or local.
-    x: (B, S, D). Returns y (B, S, D), and (k, v) after rope when
+    """Full-sequence attention (prefill / forward / encoder / cross). x:
+    (B, S, D). ``mode="causal"``: global or local by ``kind``;
+    ``mode="bidir"``: every key, the local window ignored, as in the
+    reference. ``kv_x`` (B, T, D): k and v from it (cross attention), with
+    no rope. Returns y (B, S, D), and (k, v) after rope when
     ``return_kv``."""
-    if (mode != "causal" or kv_x is not None or positions is not None
-            or kv_positions is not None):
+    if mode not in MODES:
+        raise ValueError(f"attention mode {mode!r} is not one of {MODES}")
+    if positions is not None or kv_positions is not None:
         raise NotImplementedError(
-            f"attention mode={mode!r} (cross, custom positions) is not "
-            f"ported yet: only causal attention is (see ROADMAP.md, "
-            f"queue 1)")
-    window = _window(cfg, kind)
+            "attention with custom positions is not ported: no "
+            "configuration passes them (see ROADMAP.md, queue 1)")
+    causal = mode == "causal"
+    window = _window(cfg, kind) if causal else 0
     b, s, _ = x.shape
-    q, k, v = _project_qkv(p, x, cfg)
-    if cfg.rope:
+    q, k, v = _project_qkv(p, x, cfg, kv_x)
+    if cfg.rope and kv_x is None:
         cos, sin = rope_angles(torch.arange(s, device=x.device),
                                cfg.head_dim_, cfg.rope_theta)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
     out = mha(q, k, v, scale=_scale(cfg), softcap=cfg.attn_softcap,
-              window=window)
+              window=window, causal=causal)
     y = torch.einsum("bshe,hed->bsd", out, p["wo"].to(x.dtype))
     if return_kv:
         return y, (k, v)
@@ -170,6 +181,25 @@ def attention_decode(p, x, cache_k, cache_v, pos, cfg, *, kind="global"):
     out = out.reshape(b, 1, cfg.n_heads, cfg.head_dim_)
     y = torch.einsum("bshe,hed->bsd", out, p["wo"].to(x.dtype))
     return y, cache_k, cache_v
+
+
+def cross_attention_decode(p, x, cross_k, cross_v, cfg):
+    """One-token cross attention over the fixed encoder cache. x: (B, 1,
+    D); cross_k, cross_v: (B, T, K, dh). Every cached row is attended;
+    the scale is ``head_dim ** -0.5`` and there is no softcap, as in the
+    reference (which ignores ``query_scale`` here). Returns y (B, 1, D)."""
+    b = x.shape[0]
+    q = torch.einsum("bsd,dhe->bshe", x, p["wq"].to(x.dtype))
+    if "bq" in p:
+        q = q + p["bq"].to(x.dtype)
+    kh = cross_k.shape[2]
+    qg = q.reshape(b, 1, kh, cfg.n_heads // kh, cfg.head_dim_)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.float(),
+                          cross_k.to(q.dtype).float()) * cfg.head_dim_ ** -0.5
+    w = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", w, cross_v.to(q.dtype))
+    out = out.reshape(b, 1, cfg.n_heads, cfg.head_dim_)
+    return torch.einsum("bshe,hed->bsd", out, p["wo"].to(x.dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 # repro: quarantine -- growth-seed LM serving path (every ported family); nothing in the battery system imports it
-"""Shared model primitives: norms, activations, softcap, rope (port of
-``repro/models/common.py``), and what the Mamba-2 and xLSTM blocks share:
+"""Shared model primitives: norms, activations, softcap, rope, whisper's
+sinusoidal positions (port of ``repro/models/common.py``), and what the Mamba-2 and xLSTM blocks share:
 softplus, log-sigmoid, the chunk length, and the depthwise causal conv
 (the reference's ``ssm._causal_conv`` and ``xlstm._conv_causal``, one
 function)."""
@@ -23,13 +23,30 @@ def rmsnorm(x, weight, eps=1e-6):
     return (out * (1.0 + weight.float())).to(x.dtype)
 
 
-def norm_spec(d: int):
-    """RMSNorm's weight (the reference's layernorm kind serves whisper,
-    which is not ported yet)."""
-    return {"scale": P((d,), ("embed",), init="zeros")}
+def layernorm(x, weight, bias, eps=1e-5):
+    """``(x - mean) * rsqrt(var + eps) * weight + bias`` over the last
+    dim (population variance), in float32 inside."""
+    x32 = x.float()
+    mean = x32.mean(dim=-1, keepdim=True)
+    var = x32.var(dim=-1, unbiased=False, keepdim=True)
+    out = (x32 - mean) * torch.rsqrt(var + eps)
+    return (out * weight.float() + bias.float()).to(x.dtype)
+
+
+def norm_spec(d: int, kind: str = "rms"):
+    """RMSNorm's weight (zeros: ``1 + w``), or with ``kind="ln"`` (whisper)
+    LayerNorm's ``scale`` (ones) and ``bias`` (zeros)."""
+    if kind == "rms":
+        return {"scale": P((d,), ("embed",), init="zeros")}
+    return {"scale": P((d,), ("embed",), init="ones"),
+            "bias": P((d,), ("embed",), init="zeros")}
 
 
 def apply_norm(p, x, cfg):
+    """LayerNorm where the norm's parameters hold a ``bias``, else
+    RMSNorm; eps ``cfg.norm_eps``."""
+    if "bias" in p:
+        return layernorm(x, p["scale"], p["bias"], cfg.norm_eps)
     return rmsnorm(x, p["scale"], cfg.norm_eps)
 
 
@@ -38,18 +55,25 @@ def apply_norm(p, x, cfg):
 
 def act_fn(name: str):
     """The MLP's activation: SiLU (SwiGLU), GELU in its tanh form (GeGLU;
-    the reference's ``jax.nn.gelu(approximate=True)``) or squared ReLU
-    (nemotron's ungated MLP), each in its input's dtype. The reference's
-    plain GELU serves whisper, which is not ported yet."""
+    the reference's ``jax.nn.gelu(approximate=True)``), the exact GELU
+    (whisper's ungated MLP) or squared ReLU (nemotron's ungated MLP),
+    each in its input's dtype."""
     if name == "silu":
         return F.silu
     if name == "gelu":
         return lambda x: F.gelu(x, approximate="tanh")
+    if name == "gelu_plain":
+        return gelu_plain
     if name == "relu2":
         return relu2
-    raise NotImplementedError(
-        f"activation {name!r} is not ported yet: only silu, gelu and relu2 "
-        f"are (see ROADMAP.md, queue 1 item 4)")
+    raise ValueError(f"unknown activation {name!r}: the reference has silu, "
+                     f"gelu, gelu_plain and relu2")
+
+
+def gelu_plain(x):
+    """The exact GELU, ``x * (1 + erf(x / sqrt(2))) / 2``: the reference's
+    ``jax.nn.gelu(approximate=False)``."""
+    return F.gelu(x, approximate="none")
 
 
 def relu2(x):
@@ -134,3 +158,15 @@ def apply_rope(x, cos, sin):
     out1 = x1 * cos - x2 * sin
     out2 = x2 * cos + x1 * sin
     return torch.cat([out1, out2], dim=-1).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# sinusoidal absolute positions (whisper's encoder)
+
+def sinusoid_pos(seq: int, d: int, dtype=torch.float32, device=None):
+    """(seq, d): ``[sin(pos / 10000^(2i/d)), cos(...)]`` over i < d/2,
+    computed in float32 and cast to ``dtype``."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d // 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10000.0 ** (2 * dim / d))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)

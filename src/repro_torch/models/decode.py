@@ -1,10 +1,10 @@
-# repro: quarantine -- growth-seed LM serving path (the dense, vlm, moe, ssm and hybrid families); nothing in the battery system imports it
-"""Prefill and single-token decode, dense, vlm, moe, ssm and hybrid
-families (port of ``repro/models/decode.py``; vlm runs as dense there
-too).
+# repro: quarantine -- growth-seed LM serving path (every family of the reference); nothing in the battery system imports it
+"""Prefill and single-token decode, dense, vlm, moe, audio, ssm and
+hybrid families (port of ``repro/models/decode.py``; vlm runs as dense
+there too).
 
-``prefill(params, tokens, cfg, max_seq)`` runs the full-sequence forward
-while filling the decode cache. ``decode_step(params, cache, token, cfg)``
+``prefill(params, tokens, cfg, max_seq, frames=None)`` runs the
+full-sequence forward while filling the decode cache. ``decode_step(params, cache, token, cfg)``
 writes one token's cache entries in place (the reference returns a new
 cache) and returns the cache with ``pos`` advanced. A greedy request is
 ``prefill``, then ``argmax`` -> ``decode_step`` per generated token.
@@ -23,6 +23,13 @@ zamba2's prefill stores each application of the shared block's k/v in
 its own slot and each Mamba-2 layer's conv tail and SSD state; its
 decode attends over the slot and advances the states. Decode writes the
 new states into the cache in place, as it writes k/v.
+
+whisper (the audio family) prefills from its ``frames``: the encoder
+runs once, each decoder block caches its self-attention's k/v (padded
+to ``max_seq``) and its cross attention's k/v over the encoder output
+(``cross``, ``encoder_seq`` rows). Its decode adds ``pos_embed[pos]``,
+attends over the self-attention cache, then over the fixed cross cache,
+which it leaves as it is.
 """
 from __future__ import annotations
 
@@ -32,9 +39,10 @@ from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.models.common import apply_norm
 from repro_torch.models.lm import (SHARED, _lm_logits, apply_attn_block,
                                    apply_mlp, block_cache, block_params,
-                                   embed, group_cache, group_params,
-                                   hybrid_groups, init_cache, n_superblocks,
-                                   stacks, unit)
+                                   check_frames, decoder_block, embed, encode,
+                                   group_cache, group_params, hybrid_groups,
+                                   init_cache, n_superblocks, stacks, unit)
+from repro_torch.models.mlp import mlp
 
 
 def _store(leaves, index, state):
@@ -104,15 +112,55 @@ def _decode_recurrent(params, x, cache, pos, cfg):
     return x
 
 
-def prefill(params, tokens, cfg, max_seq=None):
-    """tokens: (B, S) int -> (last-position logits (B, V_padded), cache
-    with entries for positions 0..S-1, zeros after, ``pos`` = S)."""
+def _prefill_whisper(params, x, frames, cache, cfg, s):
+    """whisper's encoder over ``frames``, then its decoder over the
+    prompt ``x``, filling the self-attention k/v (``s`` positions) and
+    the cross k/v of the cache."""
+    enc = encode(params, frames, cfg)
+    x = x + params["pos_embed"][:s].to(x.dtype)[None]
+    for i in range(cfg.n_layers):
+        x, kv, cross = decoder_block(unit(params["units"], i), x, enc, cfg)
+        for name, val in kv.items():
+            cache["units"][name][i, :, :s] = val
+        _store(cache["cross"], i, cross)
+    return x
+
+
+def _decode_whisper(params, x, cache, pos, cfg):
+    """One token through whisper's decoder: its learned position, then
+    per block self-attention over the cache (written at ``pos`` in place),
+    cross attention over the fixed cross cache and the MLP."""
+    x = x + params["pos_embed"][pos].to(x.dtype)
+    for i in range(cfg.n_layers):
+        p = unit(params["units"], i)
+        h, _, _ = attn_mod.attention_decode(
+            p["attn"], apply_norm(p["pre_attn"], x, cfg),
+            cache["units"]["k"][i], cache["units"]["v"][i], pos, cfg)
+        x = x + h
+        x = x + attn_mod.cross_attention_decode(
+            p["cross"], apply_norm(p["pre_cross"], x, cfg),
+            cache["cross"]["k"][i], cache["cross"]["v"][i], cfg)
+        x = x + mlp(p["mlp"], apply_norm(p["pre_mlp"], x, cfg), cfg)
+    return x
+
+
+def prefill(params, tokens, cfg, max_seq=None, frames=None):
+    """tokens: (B, S) int (and, for the audio family, ``frames`` (B,
+    encoder_seq, D)) -> (last-position logits (B, V_padded), cache with
+    entries for positions 0..S-1, zeros after, ``pos`` = S)."""
     b, s = tokens.shape
     max_seq = max_seq or s
+    check_frames(cfg, tokens, frames)
+    if frames is not None and frames.shape[1] != cfg.encoder_seq:
+        raise ValueError(f"{cfg.arch_id}: the cross cache holds "
+                         f"encoder_seq={cfg.encoder_seq} frames, got "
+                         f"{frames.shape[1]}")
     cache = init_cache(cfg, b, max_seq, device=tokens.device)
     x = embed(params, tokens, cfg)
     if cfg.family in ("ssm", "hybrid"):
         x = _prefill_recurrent(params, x, cache, cfg, s)
+    elif cfg.family == "audio":
+        x = _prefill_whisper(params, x, frames, cache, cfg, s)
     for pkey, ckey, n, blocks in stacks(cfg):
         for i in range(n):
             up = unit(params[pkey], i)
@@ -155,6 +203,8 @@ def decode_step(params, cache, token, cfg):
     x = embed(params, token, cfg)
     if cfg.family in ("ssm", "hybrid"):
         x = _decode_recurrent(params, x, cache, pos, cfg)
+    elif cfg.family == "audio":
+        x = _decode_whisper(params, x, cache, pos, cfg)
     for pkey, ckey, n, blocks in stacks(cfg):
         for i in range(n):
             up = unit(params[pkey], i)

@@ -1,11 +1,11 @@
-# repro: quarantine -- growth-seed LM serving path (the dense, vlm, moe, ssm and hybrid families); nothing in the battery system imports it
-"""Model assembly, dense, vlm, moe, ssm and hybrid families (port of
-``repro/models/lm.py``).
+# repro: quarantine -- growth-seed LM serving path (every family of the reference); nothing in the battery system imports it
+"""Model assembly, dense, vlm, moe, audio, ssm and hybrid families (port
+of ``repro/models/lm.py``).
 
 Public surface:
   model_spec(cfg)                           -> param Spec tree
   init_params(cfg, seed, device=None)       -> materialized params
-  forward(params, tokens, cfg)              -> (logits (B, S, V_padded), aux)
+  forward(params, tokens, cfg, frames=None) -> (logits (B, S, V_padded), aux)
   init_cache(cfg, batch, max_seq, ...)      -> decode cache
   count_params(cfg, active_only=False)      -> int (shape-only)
 
@@ -36,9 +36,19 @@ a nested ``mamba`` stack) and once more before the ``tail`` of
 ``n_layers % shared_attn_every`` layers: each application has its own
 k/v slot in the cache. Their caches are recurrent states in float32
 (SSD's (H, P, N) state; mLSTM's c/n/m; sLSTM's c/n/h/m) and conv tails
-in the compute dtype. The other family (whisper's audio) and frontend
-(``frames``) raise ``NotImplementedError`` (ROADMAP.md, queue 1 item
-4).
+in the compute dtype.
+
+The audio family (whisper) is an encoder-decoder with LayerNorms
+(``scale`` and ``bias``) and no rope. Its ``frames`` frontend takes
+decoder token ids and, beside them, precomputed encoder frame
+embeddings (B, T, D) (the reference's stub for the conv frontend). The
+``encoder`` stack adds sinusoidal positions and runs pre-norm blocks of
+non-causal self-attention and the MLP, then ``enc_final_norm``; the
+decoder adds learned positions (``pos_embed``, ``WHISPER_MAX_POS``
+rows) and runs ``units`` of causal self-attention, cross attention over
+the encoder output (``cross``) and the MLP, each pre-normed. Its cache
+holds the decoder's k/v (``units``) and the cross attention's k/v of
+the ``encoder_seq`` frames (``cross``), which decode reads unchanged.
 """
 from __future__ import annotations
 
@@ -53,25 +63,36 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import xlstm as xlstm_mod
-from repro_torch.models.common import act_fn, apply_norm, norm_spec, softcap
+from repro_torch.models.common import (act_fn, apply_norm, norm_spec,
+                                       sinusoid_pos, softcap)
 from repro_torch.models.mlp import mlp, spec_mlp
 from repro_torch.models.params import (P, count_spec_params, init_from_spec,
                                        leaves, stack_spec, tree_map)
 
 
-FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
-FRONTENDS = ("tokens", "fused")
+FAMILIES = ("dense", "vlm", "moe", "audio", "ssm", "hybrid")
+FRONTENDS = ("tokens", "fused", "frames")
+# rows of whisper's learned decoder positions (the reference's)
+WHISPER_MAX_POS = 32768
 
 
 def _check_ported(cfg):
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} ({cfg.arch_id}) is not ported yet: "
-            f"only {FAMILIES} are (see ROADMAP.md, queue 1 item 4)")
+        raise ValueError(f"unknown model family {cfg.family!r} "
+                         f"({cfg.arch_id}): the reference has {FAMILIES}")
     if cfg.frontend not in FRONTENDS:
-        raise NotImplementedError(
-            f"frontend {cfg.frontend!r} ({cfg.arch_id}) is not ported yet: "
-            f"only {FRONTENDS} are (see ROADMAP.md, queue 1 item 4)")
+        raise ValueError(f"unknown frontend {cfg.frontend!r} "
+                         f"({cfg.arch_id}): the reference has {FRONTENDS}")
+    if (cfg.family == "audio") != (cfg.frontend == "frames"):
+        raise ValueError(f"{cfg.arch_id}: the audio family and the frames "
+                         f"frontend go together, got family {cfg.family!r} "
+                         f"with frontend {cfg.frontend!r}")
+    if cfg.family == "audio" and not (cfg.is_encoder_decoder
+                                      and cfg.n_encoder_layers >= 1
+                                      and cfg.encoder_seq >= 1):
+        raise ValueError(f"{cfg.arch_id}: the audio family needs "
+                         f"is_encoder_decoder, n_encoder_layers >= 1 and "
+                         f"encoder_seq >= 1")
     if cfg.family == "moe" and cfg.moe is None:
         raise ValueError(f"{cfg.arch_id}: the moe family needs cfg.moe")
     if cfg.family == "ssm" and cfg.xlstm is None:
@@ -124,9 +145,10 @@ def stacks(cfg):
     ``units`` of ``_unit_structure``'s blocks. moe: ``head_blocks`` (the
     leading dense layers, cache ``head``), then ``units`` of one MoE
     ``blk``; the reference's caches of both hold the block's leaves
-    directly. The ssm and hybrid families have none (their layers are
-    not attention blocks: ``n_superblocks``, ``hybrid_groups``)."""
-    if cfg.family in ("ssm", "hybrid"):
+    directly. The audio, ssm and hybrid families have none (their layers
+    are not such blocks: ``encode`` and ``decoder_block``,
+    ``n_superblocks``, ``hybrid_groups``)."""
+    if cfg.family in ("audio", "ssm", "hybrid"):
         return []
     if cfg.family == "moe":
         m, mla = cfg.moe, cfg.mla is not None
@@ -191,6 +213,21 @@ def model_spec(cfg) -> Dict[str, Any]:
             "mlstm": stack_spec(xlstm_mod.spec_mlstm(cfg), n_m,
                                 "inner_layers"),
             "slstm": xlstm_mod.spec_slstm(cfg)}, n_super)
+        return spec
+    if cfg.family == "audio":
+        ln = norm_spec(d, "ln")
+        attn = attn_mod.spec_attention(cfg)
+        spec["final_norm"] = ln
+        spec["encoder"] = stack_spec({"pre_attn": ln, "attn": attn,
+                                      "pre_mlp": ln, "mlp": spec_mlp(cfg)},
+                                     cfg.n_encoder_layers)
+        spec["units"] = stack_spec({"pre_attn": ln, "attn": attn,
+                                    "pre_cross": ln, "cross": attn,
+                                    "pre_mlp": ln, "mlp": spec_mlp(cfg)},
+                                   cfg.n_layers)
+        spec["enc_final_norm"] = ln
+        spec["pos_embed"] = P((WHISPER_MAX_POS, d), (None, "embed"),
+                              scale=0.01)
         return spec
     if cfg.family == "hybrid":
         n_full, tail = divmod(cfg.n_layers, cfg.shared_attn_every)
@@ -297,13 +334,71 @@ def apply_attn_block(p, x, cfg, blk):
     return x + h, kv, aux
 
 
-def forward_hidden(params, tokens, cfg):
-    """tokens: (B, S) int -> (final-normed hidden (B, S, D), aux loss:
-    the sum of the MoE layers' aux losses, 0 without any)."""
+def check_frames(cfg, tokens, frames):
+    """The audio family needs ``frames`` (B, T, d_model) beside its
+    (B, S) decoder tokens; every other family takes none."""
+    if cfg.family != "audio":
+        if frames is not None:
+            raise ValueError(f"{cfg.arch_id}: frames are the audio "
+                             f"family's input only")
+        return
+    if (frames is None or frames.dim() != 3
+            or frames.shape[0] != tokens.shape[0]
+            or frames.shape[2] != cfg.d_model):
+        raise ValueError(f"{cfg.arch_id} needs frames (B={tokens.shape[0]}, "
+                         f"T, {cfg.d_model}) beside its decoder tokens, got "
+                         f"{None if frames is None else tuple(frames.shape)}")
+
+
+def encode(params, frames, cfg):
+    """whisper's encoder: frames (B, T, D), cast to the compute dtype,
+    plus sinusoidal positions (in that dtype), through the ``encoder``
+    stack of pre-norm blocks (non-causal self-attention, then the MLP),
+    then ``enc_final_norm`` -> (B, T, D)."""
+    cdt = _cdtype(cfg)
+    t, d = frames.shape[1], frames.shape[2]
+    x = frames.to(cdt) + sinusoid_pos(t, d, cdt, frames.device)[None]
+    for i in range(cfg.n_encoder_layers):
+        p = unit(params["encoder"], i)
+        x = x + attn_mod.attention(p["attn"],
+                                   apply_norm(p["pre_attn"], x, cfg), cfg,
+                                   mode="bidir")
+        x = x + mlp(p["mlp"], apply_norm(p["pre_mlp"], x, cfg), cfg)
+    return apply_norm(params["enc_final_norm"], x, cfg)
+
+
+def decoder_block(p, x, enc, cfg):
+    """One whisper decoder block on the full sequence: causal
+    self-attention, cross attention over the encoder output ``enc``
+    (B, T, D), the MLP, each pre-normed. Returns (x, the self-attention's
+    ``{"k", "v"}``, the cross attention's ``{"k", "v"}``: the decode
+    cache's leaves)."""
+    h, (k, v) = attn_mod.attention(p["attn"],
+                                   apply_norm(p["pre_attn"], x, cfg), cfg,
+                                   return_kv=True)
+    x = x + h
+    h, (xk, xv) = attn_mod.attention(p["cross"],
+                                     apply_norm(p["pre_cross"], x, cfg), cfg,
+                                     mode="bidir", kv_x=enc, return_kv=True)
+    x = x + h
+    x = x + mlp(p["mlp"], apply_norm(p["pre_mlp"], x, cfg), cfg)
+    return x, {"k": k, "v": v}, {"k": xk, "v": xv}
+
+
+def forward_hidden(params, tokens, cfg, frames=None):
+    """tokens: (B, S) int (and, for the audio family, ``frames`` (B, T,
+    D)) -> (final-normed hidden (B, S, D), aux loss: the sum of the MoE
+    layers' aux losses, 0 without any)."""
     _check_ported(cfg)
+    check_frames(cfg, tokens, frames)
     x = embed(params, tokens, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    if cfg.family == "ssm":
+    if cfg.family == "audio":
+        enc = encode(params, frames, cfg)
+        x = x + params["pos_embed"][:tokens.shape[1]].to(x.dtype)[None]
+        for i in range(cfg.n_layers):
+            x, _, _ = decoder_block(unit(params["units"], i), x, enc, cfg)
+    elif cfg.family == "ssm":
         n_super, n_m = n_superblocks(cfg)
         for i in range(n_super):
             up = unit(params["units"], i)
@@ -327,10 +422,11 @@ def forward_hidden(params, tokens, cfg):
     return x, aux
 
 
-def forward(params, tokens, cfg):
-    """tokens -> (logits (B, S, V_padded), aux). Materializes full
-    logits: for small configs and tests."""
-    x, aux = forward_hidden(params, tokens, cfg)
+def forward(params, tokens, cfg, frames=None):
+    """tokens (and the audio family's ``frames``) -> (logits (B, S,
+    V_padded), aux). Materializes full logits: for small configs and
+    tests."""
+    x, aux = forward_hidden(params, tokens, cfg, frames)
     return _lm_logits(params, x, cfg), aux
 
 
@@ -349,14 +445,24 @@ def init_cache(cfg, batch: int, max_seq: int, dtype=None, device=None):
     blocks' leaves with a leading unit dim: GQA k/v (n, B, max_seq, K, dh)
     (under each block key for dense and vlm, directly for moe, as in the
     reference), MLA's latent ``ckv`` (n, B, max_seq, kv_lora_rank) and
-    rope key ``kr`` (n, B, max_seq, qk_rope_head_dim). The ssm and
-    hybrid families' recurrent states are float32, whatever ``dtype``
-    (the reference's layout, below)."""
+    rope key ``kr`` (n, B, max_seq, qk_rope_head_dim). The audio family
+    holds its decoder's k/v directly, ``units`` {k, v (n_layers, B,
+    max_seq, K, dh)}, and the cross attention's, ``cross`` {k, v
+    (n_layers, B, encoder_seq, K, dh)}. The ssm and hybrid families'
+    recurrent states are float32, whatever ``dtype`` (the reference's
+    layout, below)."""
     _check_ported(cfg)
     dev = resolve_device(device)
     cdt = dtype or _cdtype(cfg)
     if cfg.family in ("ssm", "hybrid"):
         return _recurrent_cache(cfg, batch, max_seq, cdt, dev)
+    if cfg.family == "audio":
+        head = (cfg.n_kv_heads, cfg.head_dim_)
+        return {"pos": 0, **{
+            key: {name: torch.zeros((cfg.n_layers, batch, rows) + head,
+                                    dtype=cdt, device=dev) for name in "kv"}
+            for key, rows in (("units", max_seq),
+                              ("cross", cfg.encoder_seq))}}
 
     def leaves_of(n, blk):
         if blk.mla:

@@ -328,14 +328,19 @@ def test_relu2_is_the_reference_squared_relu(dtype):
                                                                 dtype))))
     np.testing.assert_array_equal(_np(got.float()), _np(want))
     assert act_fn("relu2") is relu2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        act_fn("gelu_plain")
+    # whisper's plain GELU is the exact one (erf), not the tanh form
+    x32 = torch.from_numpy(x)
+    np.testing.assert_allclose(
+        _np(act_fn("gelu_plain")(x32)),
+        _np(jax.nn.gelu(jnp.asarray(x), approximate=False)), atol=1e-6)
+    assert not torch.allclose(act_fn("gelu_plain")(x32), act_fn("gelu")(x32))
 
 
 def test_vlm_family_and_fused_frontend_run_as_dense():
     """chameleon's ``vlm`` family with the ``fused`` frontend builds the
-    dense unit structure and takes token ids; ``frames`` and other
-    families stay refused."""
+    dense unit structure and takes token ids; ``frames`` and the
+    ``audio`` family go together (whisper's encoder-decoder spec) and
+    are refused with anything else."""
     cfg = get_reduced("chameleon-34b")
     assert (cfg.family, cfg.frontend) == ("vlm", "fused")
     dense = dataclasses.replace(cfg, family="dense", frontend="tokens")
@@ -346,5 +351,10 @@ def test_vlm_family_and_fused_frontend_run_as_dense():
                        lm.forward(params, toks, dense)[0])
     for other in (dataclasses.replace(cfg, frontend="frames"),
                   dataclasses.replace(cfg, family="audio")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="audio family"):
             lm.model_spec(other)
+    whisper = get_reduced("whisper-small")
+    assert (whisper.family, whisper.frontend) == ("audio", "frames")
+    spec = lm.model_spec(whisper)
+    assert {"encoder", "units", "enc_final_norm", "pos_embed"} <= set(spec)
+    assert sorted(spec["units"]["pre_cross"]) == ["bias", "scale"]

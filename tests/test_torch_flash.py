@@ -118,16 +118,21 @@ def test_mha_refuses_padding_it_cannot_mask():
         mha(q, k[:, :136], v[:, :136], scale=0.25)
 
 
-def wgmma_emulation(q, k, v, *, scale, softcap=0.0, window=0):
+NEG = -2.3819763e38
+
+
+def wgmma_emulation(q, k, v, *, scale, softcap=0.0, window=0, causal=True,
+                    kv_len=None):
     """The arithmetic of the bfloat16 tensor-core route (``fa_hopper.cuh``)
     in float32 on the CPU: 128-row q tiles and 128-key kv tiles up to the
+    tile that holds key ``kv_len - 1`` (default T) and, causal, up to the
     diagonal, scores in the log2 domain (scale or softcap folded with
-    log2(e), exp2), the mask applied to the diagonal tile only, l summed
-    from float32 P, and P rounded to bfloat16 before P.V. With a sliding
-    ``window`` w > 0, the kv tiles start at the kernel's
-    ``max(0, q0 - w + 1) // 128`` and the tiles at the window's lower edge
-    (``k0 <= q0 + 127 - w``) are masked too. On q's device; S a multiple
-    of 128."""
+    log2(e), exp2), the mask applied to the diagonal tile and the tile
+    that holds key ``kv_len`` only, l summed from float32 P, and P
+    rounded to bfloat16 before P.V. With a sliding ``window`` w > 0, the
+    kv tiles start at the kernel's ``max(0, q0 - w + 1) // 128`` and the
+    tiles at the window's lower edge (``k0 <= q0 + 127 - w``) are masked
+    too. On q's device; S and T multiples of 128."""
     b, s, h, dh = q.shape
     t, kh = k.shape[1], k.shape[2]
     dev = q.device
@@ -138,22 +143,27 @@ def wgmma_emulation(q, k, v, *, scale, softcap=0.0, window=0):
     vf = fold(v).repeat_interleave(h // kh, dim=1)
     out = torch.empty((b, h, s, dh), dtype=torch.bfloat16, device=dev)
     pos = torch.arange(128, device=dev)
+    kv_len = t if kv_len is None else kv_len
     for q0 in range(0, s, 128):
         qt = qf[:, :, q0:q0 + 128]
-        m = torch.full((b, h, 128), -2.3819763e38, device=dev)
+        m = torch.full((b, h, 128), NEG, device=dev)
         l = torch.zeros((b, h, 128), device=dev)
         acc = torch.zeros((b, h, 128, dh), device=dev)
         lo = max(0, q0 - window + 1) // 128 * 128 if window else 0
-        for k0 in range(lo, min(t, q0 + 128), 128):
+        hi = -(-kv_len // 128) * 128
+        for k0 in range(lo, min(hi, q0 + 128) if causal else hi, 128):
             x = qt @ kf[:, :, k0:k0 + 128].transpose(-1, -2)
             x = (torch.tanh(x * (scale / softcap)) * (softcap * log2e)
                  if softcap else x * (scale * log2e))
-            if k0 + 127 > q0 or (window and q0 + 127 - k0 >= window):
+            if ((causal and k0 + 127 > q0) or k0 + 128 > kv_len
+                    or (window and q0 + 127 - k0 >= window)):
                 diff = (q0 + pos)[:, None] - (k0 + pos)[None, :]
-                masked = diff < 0
+                masked = (k0 + pos >= kv_len)[None, :]
+                if causal:
+                    masked = masked | (diff < 0)
                 if window:
                     masked = masked | (diff >= window)
-                x = x.masked_fill(masked, -2.3819763e38)
+                x = x.masked_fill(masked, NEG)
             m_new = torch.maximum(m, x.amax(-1))
             alpha = torch.exp2(m - m_new)
             p = torch.exp2(x - m_new[..., None])
@@ -164,6 +174,51 @@ def wgmma_emulation(q, k, v, *, scale, softcap=0.0, window=0):
         out[:, :, q0:q0 + 128] = (acc / l.clamp_min(1e-37)[..., None]
                                   ).bfloat16()
     return out.transpose(1, 2)
+
+
+def simt_emulation(q, k, v, *, scale, softcap=0.0, window=0, causal=True,
+                   kv_len=None):
+    """The CUDA-core route's loop (``flash_attention.cu``) in float32:
+    64-row q tiles, 64-key kv tiles from ``max(0, q0 - w + 1) // 64`` up
+    to the tile that holds key ``kv_len - 1`` (default T) and, causal, to
+    the diagonal, softcap then mask with NEG on every tile, online softmax
+    with exp; a row whose keys all lie past a walked tile carries p = 1
+    there until its first kept key clears it."""
+    b, s, h, dh = q.shape
+    t, kh = k.shape[1], k.shape[2]
+    fold = lambda x: x.transpose(1, 2).float()
+    qf = fold(q)
+    kf = fold(k).repeat_interleave(h // kh, dim=1)
+    vf = fold(v).repeat_interleave(h // kh, dim=1)
+    out = torch.empty((b, h, s, dh))
+    pos = torch.arange(64)
+    kv_len = t if kv_len is None else kv_len
+    for q0 in range(0, s, 64):
+        m = torch.full((b, h, 64), NEG)
+        l = torch.zeros((b, h, 64))
+        acc = torch.zeros((b, h, 64, dh))
+        lo = max(0, q0 - window + 1) // 64 * 64 if window else 0
+        hi = -(-kv_len // 64) * 64
+        for k0 in range(lo, min(hi, q0 + 64) if causal else hi, 64):
+            x = qf[:, :, q0:q0 + 64] @ kf[:, :, k0:k0 + 64].transpose(-1, -2)
+            x = x * scale
+            if softcap:
+                x = torch.tanh(x / softcap) * softcap
+            diff = (q0 + pos)[:, None] - (k0 + pos)[None, :]
+            masked = (k0 + pos >= kv_len)[None, :].expand(64, 64)
+            if causal:
+                masked = masked | (diff < 0)
+            if window:
+                masked = masked | (diff >= window)
+            x = x.masked_fill(masked, NEG)
+            m_new = torch.maximum(m, x.amax(-1))
+            alpha = torch.exp(m - m_new)
+            p = torch.exp(x - m_new[..., None])
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + p @ vf[:, :, k0:k0 + 64]
+            m = m_new
+        out[:, :, q0:q0 + 64] = acc / l.clamp_min(1e-37)[..., None]
+    return out.transpose(1, 2).to(q.dtype)
 
 
 def row_rel_err(got, want):
@@ -480,3 +535,200 @@ def test_split_dv_kernel_matches_plain_on_card(cuda, b, s, h, kh, dqk, dv,
     want = mha_ref(q, k, v, scale=dqk ** -0.5)
     assert got.shape == want.shape == (b, s, h, dv)
     assert float((got.float() - want.float()).abs().max()) <= TOL[dtype]
+
+
+# -- the non-causal form (whisper's encoder self-attention and its
+# decoder's cross attention) and a count of real keys
+
+# (B, S, T, H, K, dh, softcap, dtype): S and T multiples of 128, S < T,
+# S = T and S > T
+BIDIR_SHAPES = [(2, 256, 256, 4, 2, 64, 0.0, "float32"),
+                (1, 128, 384, 2, 2, 128, 50.0, "float32"),
+                (2, 256, 128, 4, 4, 64, 0.0, "bfloat16"),
+                (1, 384, 256, 4, 1, 64, 30.0, "bfloat16")]
+
+
+def _qkv_st(seed, b, s, t, h, kh, dh):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((b, s, h, dh), dtype=np.float32),
+            rng.standard_normal((b, t, kh, dh), dtype=np.float32),
+            rng.standard_normal((b, t, kh, dh), dtype=np.float32))
+
+
+@pytest.mark.parametrize("b,s,t,h,kh,dh,cap,dtype", BIDIR_SHAPES)
+def test_mha_bidir_matches_pallas_kernel(b, s, t, h, kh, dh, cap, dtype):
+    """``mha(causal=False)`` and its plain version equal the reference
+    wrapper over its Pallas kernel's ``causal=False`` form (interpret
+    mode), with S below, at and above T."""
+    from repro.kernels.flash_attention.ops import mha as ref_mha
+    q, k, v = _qkv_st(s + t + dh, b, s, t, h, kh, dh)
+    tq, tk, tv = (_torch(x, dtype) for x in (q, k, v))
+    want = np.asarray(ref_mha(*(_jax(x, dtype) for x in (q, k, v)),
+                              scale=dh ** -0.5, softcap=cap, causal=False,
+                              interpret=True), np.float32)
+    for got in (mha(tq, tk, tv, scale=dh ** -0.5, softcap=cap, causal=False),
+                mha_ref(tq, tk, tv, scale=dh ** -0.5, softcap=cap,
+                        causal=False)):
+        assert got.dtype == getattr(torch, dtype)
+        assert got.shape == (b, s, h, dh)
+        np.testing.assert_allclose(got.float().numpy(), want,
+                                   atol=TOL[dtype])
+    # the non-causal form is not the causal one at these shapes
+    assert not torch.allclose(mha(tq, tk, tv, scale=dh ** -0.5,
+                                  causal=False),
+                              mha(tq, tk, tv, scale=dh ** -0.5))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s,t", [(12, 300), (200, 300), (4, 1500), (1, 1),
+                                 (300, 130)])
+def test_kv_len_mask_matches_reference_sdpa(s, t, dtype):
+    """At a key count T that is no multiple of 128, ``mha(causal=False)``
+    pads T and masks the padding by the count (``kv_len = T``): it equals
+    the reference's XLA attention (``repro.models.attention.sdpa``,
+    ``"bidir"``: whisper's encoder and cross attention) on the unpadded
+    inputs, and so does ``mha_ref(kv_len=T)`` on zero-padded keys."""
+    import jax.numpy as jnp
+    from repro.models.attention import sdpa
+    b, h, kh, dh = 2, 4, 2, 32
+    q, k, v = _qkv_st(s * 7 + t, b, s, t, h, kh, dh)
+    scale = dh ** -0.5
+    tq, tk, tv = (_torch(x, dtype) for x in (q, k, v))
+    got = mha(tq, tk, tv, scale=scale, causal=False)
+    assert got.shape == (b, s, h, dh) and got.dtype == getattr(torch, dtype)
+    want = sdpa(*(_jax(x, dtype) for x in (q, k, v)), jnp.arange(s),
+                jnp.arange(t), "bidir", 0, scale, 0.0)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=TOL[dtype])
+    tp = -(-t // 128) * 128
+    pad = lambda x: torch.nn.functional.pad(x, (0, 0, 0, 0, 0, tp - t))
+    padded = mha_ref(tq, pad(tk), pad(tv), scale=scale, causal=False,
+                     kv_len=t)
+    np.testing.assert_allclose(
+        padded.float().numpy(),
+        mha_ref(tq, tk, tv, scale=scale, causal=False).float().numpy(),
+        atol=TOL[dtype])
+
+
+def test_mha_refuses_a_window_without_the_causal_form():
+    """A sliding window needs the causal form: ``mha``, ``mha_ref`` and
+    the launcher refuse it with ``causal=False``; the launcher also
+    refuses a key count outside (0, T] and a window over fewer than T
+    keys, before any build or launch. The causal form keeps refusing a
+    ragged T shorter than S, which the non-causal one takes."""
+    launches = fk.flash_attention.launches
+    q, k, v = (torch.from_numpy(x) for x in _qkv(2, 1, 256, 2, 2, 16))
+    with pytest.raises(ValueError, match="causal form"):
+        mha(q, k, v, scale=0.25, window=64, causal=False)
+    with pytest.raises(ValueError, match="causal form"):
+        mha_ref(q, k, v, scale=0.25, window=64, causal=False)
+    for kw in ({"window": 64, "causal": False}, {"kv_len": 0},
+               {"kv_len": 257}, {"window": 64, "kv_len": 200}):
+        with pytest.raises(ValueError, match="causal form|kv_len"):
+            fk.flash_attention(q, k, v, scale=0.25, **kw)
+    with pytest.raises(ValueError, match="padded keys"):
+        mha(q, k[:, :136], v[:, :136], scale=0.25)
+    assert mha(q, k[:, :136], v[:, :136], scale=0.25,
+               causal=False).shape == q.shape
+    assert fk.flash_attention.launches == launches
+
+
+@pytest.mark.parametrize("kv_len", [1, 64, 100, 128, 300, 384])
+def test_noncausal_loops_of_both_routes_match_plain(kv_len):
+    """The two CUDA routes' non-causal loops, emulated (tiles from 0 to
+    the one that holds key ``kv_len - 1``; the CUDA-core route masks
+    keys past the count on every tile, the tensor-core one on that last
+    tile only, P in bfloat16), equal the plain version at S = 256
+    queries over T = 384 keys of which ``kv_len`` are real: float32 within
+    2e-5 (with a softcap), bfloat16 within 2e-2."""
+    q, k, v = (torch.from_numpy(x)
+               for x in _qkv_st(kv_len, 1, 256, 384, 4, 2, 64))
+    kw = {"scale": 0.125, "causal": False, "kv_len": kv_len}
+    got = simt_emulation(q, k, v, softcap=30.0, **kw)
+    want = mha_ref(q, k, v, softcap=30.0, **kw)
+    assert float((got - want).abs().max()) <= TOL["float32"]
+    qb, kb, vb = (x.bfloat16() for x in (q, k, v))
+    got = wgmma_emulation(qb, kb, vb, **kw)
+    want = mha_ref(qb, kb, vb, **kw)
+    assert float((got.float() - want.float()).abs().max()) <= TOL["bfloat16"]
+    assert row_rel_err(got, want) <= 2.0 ** -5
+
+
+def test_launcher_passes_causal_and_kv_len(monkeypatch):
+    """``causal`` and ``kv_len`` go to both C entry points right after
+    the strides (``args[21:23]``); the two floats and the window stay the
+    three arguments before the stream, dh ``args[10]``. The causal
+    default passes (1, T); a non-causal launch is counted in
+    ``flash_attention.bidir`` and keeps the 8-field ``calls`` key. No
+    kernel is built: ``_entry`` is stubbed, and the CPU tensors pass for
+    CUDA ones."""
+    asked = []
+
+    def entry(kind):
+        def fn(*args):
+            asked.append((kind, args[10], args[21:23], args[-4:-1]))
+            return 0
+        return fn
+    monkeypatch.setattr(fk, "_entry", entry)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    monkeypatch.setattr(fk.flash_attention, "launches", 0)
+    monkeypatch.setattr(fk.flash_attention, "bidir", 0)
+    monkeypatch.setattr(fk.flash_attention, "calls", collections.Counter())
+    q = torch.zeros((2, 128, 12, 64), dtype=torch.bfloat16)
+    kv = torch.zeros((2, 1536, 12, 64), dtype=torch.bfloat16)
+    fk.flash_attention(q, kv, kv, scale=0.125, causal=False, kv_len=1500)
+    assert asked[-1] == ("wgmma", 64, (0, 1500), (0.125, 0.0, 0))
+    fk.flash_attention(q, kv, kv, scale=0.125, softcap=5.0)
+    assert asked[-1] == ("wgmma", 64, (1, 1536), (0.125, 5.0, 0))
+    x = torch.zeros((1, 256, 4, 64))
+    fk.flash_attention(x, x, x, scale=0.5, causal=False)
+    assert asked[-1] == ("simt", 64, (0, 256), (0.5, 0.0, 0))
+    fk.flash_attention(x, x, x, scale=0.5, window=300)
+    assert asked[-1] == ("simt", 64, (1, 256), (0.5, 0.0, 300))
+    assert (fk.flash_attention.launches, fk.flash_attention.bidir) == (4, 2)
+    assert fk.flash_attention.calls[
+        (2, 128, 1536, 12, 12, 64, str(torch.bfloat16), "wgmma")] == 2
+    rc, _ = fk._call("wgmma", q, kv, kv, 0.125, 0.0)
+    assert rc == 0 and asked[-1][2] == (1, 1536)
+    rc, _ = fk._call("simt", q, kv, kv, 0.125, 0.0, 0, False, 7)
+    assert rc == 0 and asked[-1][2] == (0, 7)
+    assert (fk.flash_attention.launches, fk.flash_attention.bidir) == (4, 2)
+
+
+# whisper-small's attention on the card: (B, S, T, kv_len, H, dh). The
+# encoder (1,500 frames padded to 1,536; B 2 here, 8 in chip_smoke.py),
+# the decoder's cross attention from a 4- and a 224-token prompt, and key
+# counts of one key, half a tile, one tile and every key
+WHISPER_BIDIR = [(2, 1536, 1536, 1500, 12, 64), (8, 128, 1536, 1500, 12, 64),
+                 (1, 256, 1536, 1500, 12, 64), (1, 256, 1536, 1, 12, 64),
+                 (1, 256, 1536, 64, 12, 64), (1, 256, 1536, 128, 12, 64),
+                 (1, 256, 1536, 1536, 12, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("b,s,t,kv_len,h,dh", WHISPER_BIDIR)
+def test_noncausal_kernel_matches_plain_on_card(cuda, b, s, t, kv_len, h, dh,
+                                                dtype):
+    """Both routes' non-causal form (bfloat16 on ``wgmma``, float32 on
+    ``simt``) against the plain version at whisper's shapes and at the
+    edge key counts; bfloat16 also row by row against its own
+    arithmetic."""
+    q, k, v = (_torch(x, dtype).to(cuda)
+               for x in _qkv_st(kv_len, b, s, t, h, h, dh))
+    before = (fk.flash_attention.launches, fk.flash_attention.bidir)
+    got = fk.flash_attention(q, k, v, scale=dh ** -0.5, causal=False,
+                             kv_len=kv_len)
+    torch.cuda.synchronize()
+    assert (fk.flash_attention.launches,
+            fk.flash_attention.bidir) == (before[0] + 1, before[1] + 1)
+    want = mha_ref(q, k, v, scale=dh ** -0.5, causal=False, kv_len=kv_len)
+    assert float((got.float() - want.float()).abs().max()) <= TOL[dtype]
+    if dtype == "bfloat16":
+        same = wgmma_emulation(q, k, v, scale=dh ** -0.5, causal=False,
+                               kv_len=kv_len)
+        assert row_rel_err(got, same) <= WGMMA_ROW_RTOL

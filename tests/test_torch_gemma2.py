@@ -38,7 +38,7 @@ from repro_torch.models import lm
 from repro_torch.models.common import act_fn
 from repro_torch.models.convert import params_from_jax
 from test_torch_flash import (TOL, WGMMA_ROW_RTOL, row_rel_err,
-                              wgmma_emulation)
+                              simt_emulation, wgmma_emulation)
 
 ARCH = "gemma2-27b"
 ATOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -47,7 +47,6 @@ B, S, GEN = 2, 24, 8
 # bfloat16 (sqrt(72) = 8.485 rounds to 8.5) and query_scale is not
 # head_dim^-0.5, so the embedding cast and the query scale both show
 VARIANTS = {"stock": {}, "d72": {"d_model": 72, "query_scale": 0.2}}
-NEG = -2.3819763e38
 
 
 def _cfgs(compute_dtype, **over):
@@ -255,43 +254,6 @@ def test_window_of_at_least_s_is_causal_and_bad_windows_are_refused():
 
 
 # -- the two CUDA routes' windowed loops, emulated on the CPU
-
-def simt_emulation(q, k, v, *, scale, softcap=0.0, window=0):
-    """The CUDA-core route's loop (``flash_attention.cu``) in float32:
-    64-row q tiles, 64-key kv tiles from ``max(0, q0 - w + 1) // 64`` to
-    the diagonal, softcap then mask with NEG on every tile, online
-    softmax with exp; a row whose keys all lie past a walked tile carries
-    p = 1 there until its first kept key clears it."""
-    b, s, h, dh = q.shape
-    t, kh = k.shape[1], k.shape[2]
-    fold = lambda x: x.transpose(1, 2).float()
-    qf = fold(q)
-    kf = fold(k).repeat_interleave(h // kh, dim=1)
-    vf = fold(v).repeat_interleave(h // kh, dim=1)
-    out = torch.empty((b, h, s, dh))
-    pos = torch.arange(64)
-    for q0 in range(0, s, 64):
-        m = torch.full((b, h, 64), NEG)
-        l = torch.zeros((b, h, 64))
-        acc = torch.zeros((b, h, 64, dh))
-        lo = max(0, q0 - window + 1) // 64 * 64 if window else 0
-        for k0 in range(lo, min(t, q0 + 64), 64):
-            x = qf[:, :, q0:q0 + 64] @ kf[:, :, k0:k0 + 64].transpose(-1, -2)
-            x = x * scale
-            if softcap:
-                x = torch.tanh(x / softcap) * softcap
-            diff = (q0 + pos)[:, None] - (k0 + pos)[None, :]
-            masked = (diff < 0) | ((diff >= window) if window else False)
-            x = x.masked_fill(masked, NEG)
-            m_new = torch.maximum(m, x.amax(-1))
-            alpha = torch.exp(m - m_new)
-            p = torch.exp(x - m_new[..., None])
-            l = l * alpha + p.sum(-1)
-            acc = acc * alpha[..., None] + p @ vf[:, :, k0:k0 + 64]
-            m = m_new
-        out[:, :, q0:q0 + 64] = acc / l.clamp_min(1e-37)[..., None]
-    return out.transpose(1, 2).to(q.dtype)
-
 
 @pytest.mark.parametrize("window", [1, 63, 64, 100, 300, 4096])
 def test_simt_window_loop_matches_plain(window):

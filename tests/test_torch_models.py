@@ -211,24 +211,40 @@ def test_config_and_param_count_match_reference():
 
 
 def test_unported_architectures_and_paths_raise():
-    """What stays unported raises: whisper-small's architecture, its
-    audio family, its plain GELU, its ``frames`` frontend, and the
-    bidirectional and cross attention of its encoder-decoder."""
-    with pytest.raises(KeyError, match="not ported yet"):
-        get_config("whisper-small")
+    """whisper-small, the reference's last architecture, is ported: its
+    config builds, and so do qwen2's blocks with its plain GELU, and the
+    bidirectional and cross attention of its encoder-decoder run. What
+    raises is what the reference lacks or no configuration passes: an
+    unknown architecture, the audio family or the ``frames`` frontend
+    without the other, and attention with custom positions."""
+    from repro_torch.configs import NOT_PORTED
+    assert NOT_PORTED == ()
+    assert get_config("whisper-small").family == "audio"
     with pytest.raises(KeyError, match="unknown"):
         get_config("gpt-2")
     cfg = get_reduced(ARCH)
     for other in (dataclasses.replace(cfg, family="audio"),
-                  dataclasses.replace(cfg, act="gelu_plain"),
                   dataclasses.replace(cfg, frontend="frames")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="audio family"):
             lm.model_spec(other)
+    assert lm.model_spec(dataclasses.replace(cfg, act="gelu_plain")) == \
+        lm.model_spec(cfg)
     params = lm.init_params(cfg, seed=0, device="cpu")
     p = lm.unit(params["units"], 0)["blk"]["attn"]
-    x = torch.zeros((1, 4, cfg.d_model))
-    for kw in ({"mode": "bidir"}, {"kv_x": x}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    x = torch.randn((1, 4, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(0))
+    enc = torch.randn((1, 6, cfg.d_model), generator=torch.Generator()
+                      .manual_seed(1))
+    causal = attn_mod.attention(p, x, cfg)
+    bidir = attn_mod.attention(p, x, cfg, mode="bidir")
+    assert bidir.shape == causal.shape == x.shape
+    assert not torch.allclose(bidir, causal)
+    torch.testing.assert_close(bidir[:, -1], causal[:, -1])
+    assert attn_mod.attention(p, x, cfg, kv_x=enc,
+                              mode="bidir").shape == x.shape
+    for kw in ({"positions": torch.arange(4)},
+               {"kv_positions": torch.arange(4)}):
+        with pytest.raises(NotImplementedError, match="positions"):
             attn_mod.attention(p, x, cfg, **kw)
 
 

@@ -410,13 +410,16 @@ def test_config_and_param_counts_match_reference(arch):
 
 
 def test_not_ported_is_whisper_xlstm_and_zamba2():
-    """Of the three architectures this test once named, xLSTM and
-    zamba2's hybrid are ported now: what stays unported is whisper's
-    encoder-decoder alone, and it raises."""
-    assert sorted(NOT_PORTED) == ["whisper-small"]
-    for arch in NOT_PORTED:
-        with pytest.raises(KeyError, match="not ported yet"):
-            get_config(arch)
+    """Of the three architectures this test once named, all are ported
+    now (xLSTM and zamba2's hybrid, then whisper's encoder-decoder):
+    ``NOT_PORTED`` is empty, all three build, and an architecture the
+    reference lacks raises."""
+    assert NOT_PORTED == ()
+    for arch in ("whisper-small", "xlstm-1.3b", "zamba2-1.2b"):
+        assert get_config(arch).arch_id == arch
+        assert lm.model_spec(get_reduced(arch))
+    with pytest.raises(KeyError, match="unknown"):
+        get_config("gpt-2")
     cfg = get_reduced("granite-moe-1b-a400m")
     with pytest.raises(ValueError, match="needs cfg.moe"):
         lm.model_spec(dataclasses.replace(cfg, moe=None))
