@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """The flash-attention kernel of two source trees on one NVIDIA GPU, held
-to each other bit for bit in its causal form.
+to each other bit for bit.
 
     python3 chip_fa_bitwise.py SRC_A SRC_B [OUT.json]
 
@@ -12,9 +12,15 @@ and calls ``ops.mha`` with the arguments every tree since the sliding
 window takes (``scale``, ``softcap``, ``window``) on the same seeded
 inputs: qwen2-1.5b's serving shapes on both routes (bfloat16 on
 ``wgmma``, float32 on ``simt``), a padded prompt, a window with a
-softcap on both routes, head dim 192 and a v head dim of its own. The
-outputs are compared with ``torch.equal``; any difference fails. Writes
-each case's verdict to OUT.json when given.
+softcap on both routes, head dim 192, a v head dim of its own, and
+whisper's non-causal encoder on both routes (``causal=False``, a tree
+since the key count takes it). Each case runs twice in each tree: the
+serving call, and the call with q, k and v requiring grad, which a tree
+with the backward sends through its autograd path (the forward with the
+row log-sum-exp on); a tree without it makes the serving call again.
+Every output of one tree is compared with the other tree's serving
+output with ``torch.equal``; any difference fails. Writes each case's
+verdict to OUT.json when given.
 """
 import json
 import os
@@ -22,16 +28,18 @@ import subprocess
 import sys
 import tempfile
 
-# (B, S, H, K, dh, dv, softcap, window, dtype)
-CASES = [(4, 512, 12, 2, 128, 128, 0.0, 0, "bfloat16"),     # qwen2-1.5b
-         (2, 2048, 12, 2, 128, 128, 0.0, 0, "bfloat16"),
-         (4, 512, 12, 2, 128, 128, 0.0, 0, "float32"),
-         (2, 2048, 12, 2, 128, 128, 0.0, 0, "float32"),
-         (1, 200, 12, 2, 128, 128, 0.0, 0, "bfloat16"),      # padded
-         (1, 1024, 4, 2, 128, 128, 50.0, 300, "bfloat16"),   # window
-         (1, 1024, 4, 2, 64, 64, 50.0, 300, "float32"),
-         (1, 512, 8, 8, 192, 192, 0.0, 0, "bfloat16"),       # dh 192
-         (1, 512, 8, 8, 192, 128, 0.0, 0, "float32")]        # dv 128
+# (B, S, H, K, dh, dv, softcap, window, dtype, causal)
+CASES = [(4, 512, 12, 2, 128, 128, 0.0, 0, "bfloat16", True),  # qwen2-1.5b
+         (2, 2048, 12, 2, 128, 128, 0.0, 0, "bfloat16", True),
+         (4, 512, 12, 2, 128, 128, 0.0, 0, "float32", True),
+         (2, 2048, 12, 2, 128, 128, 0.0, 0, "float32", True),
+         (1, 200, 12, 2, 128, 128, 0.0, 0, "bfloat16", True),   # padded
+         (1, 1024, 4, 2, 128, 128, 50.0, 300, "bfloat16", True),  # window
+         (1, 1024, 4, 2, 64, 64, 50.0, 300, "float32", True),
+         (1, 512, 8, 8, 192, 192, 0.0, 0, "bfloat16", True),    # dh 192
+         (1, 512, 8, 8, 192, 128, 0.0, 0, "float32", True),     # dv 128
+         (2, 1500, 12, 12, 64, 64, 0.0, 0, "bfloat16", False),  # whisper
+         (2, 1500, 12, 12, 64, 64, 0.0, 0, "float32", False)]   # encoder
 
 
 def dump(src, path):
@@ -43,14 +51,19 @@ def dump(src, path):
     if not os.path.dirname(build.__file__).startswith(src):
         raise RuntimeError(f"repro_torch was not imported from {src}")
     outs = []
-    for i, (b, s, h, kh, dh, dv, cap, window, dtype) in enumerate(CASES):
+    for i, (b, s, h, kh, dh, dv, cap, window, dtype, causal) in enumerate(
+            CASES):
         dt = getattr(torch, dtype)
         g = torch.Generator(device="cuda").manual_seed(100 + i)
         q, k, v = (torch.randn((b, s, n, d), generator=g, device="cuda")
                    .to(dt) for n, d in ((h, dh), (kh, dh), (kh, dv)))
-        o = mha(q, k, v, scale=dh ** -0.5, softcap=cap, window=window)
+        kw = {"scale": dh ** -0.5, "softcap": cap, "window": window}
+        if not causal:
+            kw["causal"] = False
+        serve = mha(q, k, v, **kw)
+        grad = mha(*(x.requires_grad_(True) for x in (q, k, v)), **kw)
         torch.cuda.synchronize()
-        outs.append(o.cpu())
+        outs.append((serve.cpu(), grad.detach().cpu()))
     torch.save(outs, path)
 
 
@@ -74,15 +87,22 @@ def main(argv):
                             "--dump", src, path], check=True, timeout=900)
             outs.append(torch.load(path))
     rows, same = [], True
-    for case, a, b in zip(CASES, *outs):
-        equal = torch.equal(a, b)
-        err = float((a.float() - b.float()).abs().max())
+    for case, (a, a_grad), (b, b_grad) in zip(CASES, *outs):
+        pairs = {"serving": (a, b), "A with grad": (a_grad, b),
+                 "B with grad": (b_grad, a)}
+        verdict = {name: torch.equal(x, y) for name, (x, y) in pairs.items()}
+        err = max(float((x.float() - y.float()).abs().max())
+                  for x, y in pairs.values())
+        equal = all(verdict.values())
         same &= equal
-        rows.append({"case": case, "bitwise": equal, "max_abs_diff": err})
+        rows.append({"case": case, "bitwise": equal, "by_call": verdict,
+                     "max_abs_diff": err})
         print(f"[fa bitwise] B{case[0]} S{case[1]} H{case[2]} K{case[3]} "
               f"dh{case[4]} dv{case[5]} cap{case[6]} window {case[7]} "
-              f"{case[8]}: {'bitwise equal' if equal else 'DIFFERENT'} "
-              f"(max |diff| {err:.3g})", flush=True)
+              f"{case[8]} {'causal' if case[9] else 'non-causal'}: "
+              f"{'bitwise equal' if equal else 'DIFFERENT'} "
+              f"(serving, and each tree's call with grad against the other's "
+              f"serving call: {verdict}; max |diff| {err:.3g})", flush=True)
     if len(argv) == 3:
         with open(argv[2], "w") as f:
             json.dump({"srcs": srcs, "card": torch.cuda.get_device_name(0),

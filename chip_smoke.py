@@ -210,6 +210,25 @@ Phases, one line each (details in ``reports/chip_smoke/chip_smoke.json``):
    cross) and 12 causal; one profiled prefill and decode step; then
    float32 greedy parity, kernel (``simt``) against plain, at full depth
    on the 8 x 1,500 shape. The phase's seconds are printed.
+18. (run right after phase 17) training on the card: the flash-attention
+   forward with its row log-sum-exp (``return_lse``) bitwise the forward
+   without on both routes, the lse within FA_ATOL of the plain one; the
+   hand-written backward (``fa_bwd.cuh``) against ``attention_bwd_ref``
+   within FA_BWD_TOL (of each gradient's largest magnitude) in both
+   dtypes at every form the forward serves (qwen2's 2 x 2048 training
+   microbatch, gemma2's softcap with window 4096 and without at S 4096, a
+   window of 300, nemotron's dh 192, MLA's 192/128, whisper's non-causal
+   encoder and cross attention with kv_len 1,500, and a ragged length
+   through ``ops.mha`` under autograd), two calls bitwise equal, each form
+   timed beside its bound and, where it computes the same function,
+   sdpa's backward; a float32 train step
+   of qwen2-1.5b at full width and 2 layers, kernel against plain
+   attention (loss, every gradient leaf); then ``launch.train.train`` on
+   qwen2-1.5b at full width and depth (8 x 2048 tokens a step, float32
+   parameters and Adam, bf16 compute, 4 microbatches, full remat) for 6
+   steps: finite losses, ms a step, tokens/s, peak memory, 224 forward
+   and 112 backward flash-attention calls a step; one profiled step. The
+   phase's seconds are printed.
 
 Phase 3 times every kernel at the shapes the main paths gave it (BigCrush
 for the battery kernels and mwc, phase 6 for flash attention).
@@ -217,12 +236,14 @@ for the battery kernels and mwc, phase 6 for flash attention).
 Any failure raises, and the script exits non-zero without a result line;
 the traceback and ``nvidia-smi -q`` go to ``reports/chip_smoke/chip_smoke_failure.txt``.
 The kernels' JSON adds each kernel's launches in phases 8, 9, 10, 11,
-13, 14, 15, 16 and 17 (``launches_captured_bigcrush``,
+13, 14, 15, 16, 17 and 18 (``launches_captured_bigcrush``,
 ``launches_campaign``, ``launches_elastic_faults``, ``launches_serve``,
 ``launches_gemma2``, ``launches_dense_archs``, ``launches_moe``,
-``launches_recurrent``, ``launches_whisper``) beside those of the main
-path, and flash attention's row its non-causal launches in phase 17
-(``bidir``). The last three
+``launches_recurrent``, ``launches_whisper``, ``launches_train``) beside
+those of the main path, and flash attention's row its non-causal launches
+in phase 17 (``bidir``); the backward's row (``flash_attention_bwd``)
+counts its calls in phase 18's training run, each timed at qwen2's
+training shape. The last three
 lines are the kernels' JSON, the card, and ``{"ok": true, "device":
 {...}}``.
 """
@@ -464,6 +485,45 @@ WHISPER_KV_LENS = [1, 64, 128, 1536]
 # float32 greedy parity, kernel against plain, at full depth: the first
 # request's shape, this many tokens
 WHISPER_PARITY_GEN = 16
+# phase 18: the flash-attention backward against its plain version at
+# each form the forward serves, in both dtypes: (what, B, S, T, H, K,
+# dqk, dv, causal, window, softcap, kv_len). qwen2's training microbatch
+# (timed); gemma2's local layer (softcap 50, window 4096) and global one
+# at its 4,096-token training length, and a window that bites at S 1024;
+# nemotron's dh 192; deepseek's MLA (dqk 192, dv 128); whisper's encoder
+# (1,500 frames padded to 1,536) and its cross attention (a 4-token
+# prompt padded to 128 on the 1,500 frames)
+FA_BWD_FORMS = [
+    ("qwen2 training", 2, 2048, 2048, 12, 2, 128, 128, True, 0, 0.0, None),
+    ("gemma2 local", 1, 4096, 4096, 32, 16, 128, 128, True, 4096, 50.0, None),
+    ("gemma2 global", 1, 4096, 4096, 32, 16, 128, 128, True, 0, 50.0, None),
+    ("window 300", 1, 1024, 1024, 8, 4, 128, 128, True, 300, 50.0, None),
+    ("nemotron dh 192", 1, 1024, 1024, 96, 8, 192, 192, True, 0, 0.0, None),
+    ("MLA 192/128", 1, 1024, 1024, 128, 128, 192, 128, True, 0, 0.0, None),
+    ("whisper encoder", 8, 1536, 1536, 12, 12, 64, 64, False, 0, 0.0, 1500),
+    ("whisper cross", 8, 128, 1536, 12, 12, 64, 64, False, 0, 0.0, 1500)]
+# a length that is not a multiple of 128, through ``ops.mha`` under
+# autograd (the padded call and its backward): (B, S, H, K, dh)
+FA_BWD_RAGGED = (2, 1000, 12, 2, 128)
+# max |kernel - plain| / max |plain| of each gradient (the plain version in
+# float32 on the same inputs): float32 sums in other orders; bfloat16
+# inputs, outputs and the forward's bfloat16 O in D = rowsum(dO . O)
+FA_BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the float32 train step, kernel against plain attention: qwen2-1.5b at
+# full width and TRAIN_PARITY_LAYERS layers, (batch, sequence)
+TRAIN_PARITY_LAYERS = 2
+TRAIN_PARITY_SHAPE = (2, 1024)
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_TOL = 1e-4
+# the training run: qwen2-1.5b at full width and depth through
+# launch.train.train: float32 parameters and Adam moments, bfloat16
+# compute, train_accum 4 (microbatches of 2), full remat
+TRAIN_RUN = {"arch": "qwen2-1.5b", "steps": 6, "global_batch": 8,
+             "seq_len": 2048}
+# flash-attention launches a step: 28 layers x 4 microbatches, the
+# forward twice under full remat (the backward's recompute), the backward
+# once (three kernels a call)
+TRAIN_LAUNCHES = {"forward": 224, "backward": 112}
 # (batch, prompt length, generated tokens) of the serve phase
 SERVE = [(4, 512, 64), (2, 2048, 16)]
 # float32 serve parity, kernel vs plain: last-position logits are O(1)
@@ -1075,7 +1135,9 @@ def _kernel_fns():
 
 
 def zero_counts():
-    """Set every kernel's launch count to 0 (just before a path runs)."""
+    """Set every kernel's launch count to 0 (just before a path runs),
+    the flash-attention backward's too."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_bwd
     for fn in _kernel_fns().values():
         fn.launches = 0
         fn.calls.clear()
@@ -1083,6 +1145,8 @@ def zero_counts():
             fn.windowed = 0
             fn.split_dv = 0
             fn.bidir = 0
+    flash_attention_bwd.launches = 0
+    flash_attention_bwd.calls.clear()
 
 
 def launch_counts():
@@ -3182,6 +3246,357 @@ def whisper_phase(card):
     return out
 
 
+def fa_bwd_case(what, b, s, t, h, kh, dqk, dv, causal, window, cap, kv_len,
+                dtype, seed=0, timed=False):
+    """Phase 18 (a) and (b) at one form: the forward with ``return_lse``
+    gives O bitwise the one without, on the launcher's route and (bf16 at
+    dh 64/128) the CUDA-core one; its lse within FA_ATOL of
+    ``attention_ref``'s; the backward within FA_BWD_TOL of
+    ``attention_bwd_ref`` (float32, the same inputs) in each gradient,
+    and two calls equal bit for bit. ``timed`` adds the backward's per-call
+    and device ms, the plain version's, the bound (the five products of
+    the pairs the mask keeps; the bytes of q, k, v, o, dO and the three
+    gradients) and ``scaled_dot_product_attention``'s backward on the same
+    inputs where it computes the same function (causal, no window, no
+    softcap, dv = dqk)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import (attention_bwd_ref,
+                                                         mha_ref)
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=g, device="cuda").to(dt)
+                   for shape in ((b, s, h, dqk), (b, t, kh, dqk),
+                                 (b, t, kh, dv), (b, s, h, dv)))
+    m = {"scale": dqk ** -0.5, "softcap": cap, "window": window,
+         "causal": causal, "kv_len": kv_len}
+    name = (f"flash_attention_bwd {what} B{b} S{s} T{t} H{h} K{kh} "
+            f"dqk{dqk} dv{dv} {dtype}")
+    o0 = fk.flash_attention(q, k, v, **m)
+    o, lse = fk.flash_attention(q, k, v, **m, return_lse=True)
+    kind = fk.route(dt, dqk, dv)
+    rec = {"what": what, "b": b, "s": s, "t": t, "h": h, "kh": kh,
+           "dqk": dqk, "dv": dv, "causal": causal, "window": window,
+           "softcap": cap, "kv_len": kv_len, "dtype": dtype, "route": kind}
+    check(torch.equal(o0, o), f"{name}: the forward's O with lse is not "
+                              f"bitwise the one without ({kind})")
+    want_o, want_lse = mha_ref(q, k, v, **m, return_lse=True)
+    rec["lse_err"] = float((lse - want_lse).abs().max())
+    check(rec["lse_err"] <= FA_ATOL[dtype], f"{name}: max |lse - plain| "
+          f"{rec['lse_err']} > {FA_ATOL[dtype]}")
+    if kind == "wgmma":
+        # the CUDA-core route on the same inputs, uncounted
+        lse_s = torch.empty_like(lse)
+        rc0, a = fk._call("simt", q, k, v, m["scale"], cap, window, causal,
+                          kv_len)
+        rc1, a_lse = fk._call("simt", q, k, v, m["scale"], cap, window,
+                              causal, kv_len, lse_s)
+        torch.cuda.synchronize()
+        check(rc0 == rc1 == 0 and torch.equal(a, a_lse),
+              f"{name}: the simt route's O with lse is not bitwise the one "
+              f"without")
+        rec["simt_lse_err"] = float((lse_s - want_lse).abs().max())
+        check(rec["simt_lse_err"] <= FA_ATOL[dtype], f"{name}: simt route "
+              f"max |lse - plain| {rec['simt_lse_err']}")
+        del a, a_lse, lse_s
+    del o0, want_o, want_lse
+    g1 = fk.flash_attention_bwd(q, k, v, o, lse, do, **m)
+    g2 = fk.flash_attention_bwd(q, k, v, o, lse, do, **m)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(g1, g2)),
+          f"{name}: two backward calls differ")
+    del g2
+    want = attention_bwd_ref(q.float(), k.float(), v.float(), o.float(), lse,
+                             do.float(), **m)
+    rec["rel_err"], rec["abs_err"] = [], []
+    for label, x, w in zip(("dq", "dk", "dv"), g1, want):
+        check(bool(torch.isfinite(x).all()), f"{name}: non-finite {label}")
+        diff = float((x.float() - w).abs().max())
+        rel = diff / float(w.abs().max())
+        rec["abs_err"].append(diff)
+        rec["rel_err"].append(rel)
+        check(rel <= FA_BWD_TOL[dtype], f"{name}: {label} max |kernel - "
+              f"plain| / max |plain| {rel} > {FA_BWD_TOL[dtype]}")
+    rec["max_abs_err"] = max(rec["abs_err"])
+    rec["tol"] = FA_BWD_TOL[dtype]
+    del want, g1
+    if not timed:
+        return rec
+    # (query, key) pairs the mask keeps over one head
+    pairs = (attended_pairs(s, window) if causal
+             else s * (t if kv_len is None else kv_len))
+    esize = torch.finfo(dt).bits // 8
+    n_ops = 2 * (3 * dqk + 2 * dv) * b * h * pairs
+    n_bytes = (esize * (b * s * h * (2 * dqk + 2 * dv)
+                        + 2 * b * t * kh * (dqk + dv)) + 4 * b * h * s)
+    peak = SCALAR_OPS_PER_S if dt == torch.float32 else TENSOR_BF16_FLOPS
+    bound, by = bound_ms(n_bytes, n_ops, peak)
+
+    def kernel():
+        return fk.flash_attention_bwd(q, k, v, o, lse, do, **m)
+    rec.update({"pairs": pairs, "flop": n_ops, "bytes": n_bytes,
+                "bound_ms": bound, "bound_by": by, "peak_ops_per_s": peak,
+                "ms": median_ms(kernel), "device_ms": device_ms(kernel),
+                "plain_ms": median_ms(lambda: attention_bwd_ref(
+                    q, k, v, o, lse, do, **m), reps=3, warmup=1),
+                "library_ms": None, "library_device_ms": None})
+    # sdpa computes the same function where the mask is causal with no
+    # window, there is no softcap, and v is as wide as q and k
+    if not cap and causal and not window and dqk == dv:
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        out = F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, scale=m["scale"], enable_gqa=True)
+        dot = do.transpose(1, 2)
+
+        def library():
+            return torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
+        rec["library_ms"] = median_ms(library)
+        rec["library_device_ms"] = device_ms(library)
+        del out
+    return rec
+
+
+def fa_bwd_ragged(dtype, seed=0):
+    """``ops.mha`` under autograd at a length that is not a multiple of
+    128 (padded to the next one by ``_Attention``): its gradients against
+    autograd through ``mha_ref`` in float32 on the unpadded inputs, within
+    FA_BWD_TOL; one forward with lse and one backward launched."""
+    import torch
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ops import mha
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    b, s, h, kh, dh = FA_BWD_RAGGED
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn((b, s, n, dh), generator=g, device="cuda")
+                   .to(dt) for n in (h, kh, kh, h))
+    leaves = [x.clone().requires_grad_(True) for x in (q, k, v)]
+    plain = [x.float().requires_grad_(True) for x in (q, k, v)]
+    before = (fk.flash_attention.launches, fk.flash_attention_bwd.launches)
+    got = torch.autograd.grad(mha(*leaves, scale=dh ** -0.5), leaves, do)
+    after = (fk.flash_attention.launches, fk.flash_attention_bwd.launches)
+    want = torch.autograd.grad(mha_ref(*plain, scale=dh ** -0.5), plain,
+                               do.float())
+    check(after == (before[0] + 1, before[1] + 1), f"ragged mha autograd: "
+          f"launches {before} -> {after}")
+    errs = [float((x.float() - w).abs().max() / w.abs().max())
+            for x, w in zip(got, want)]
+    check(max(errs) <= FA_BWD_TOL[dtype], f"ragged mha autograd B{b} S{s} "
+          f"{dtype}: relative errors {errs} > {FA_BWD_TOL[dtype]}")
+    return {"b": b, "s": s, "h": h, "kh": kh, "dh": dh, "dtype": dtype,
+            "rel_err": errs}
+
+
+def train_phase(card):
+    """Phase 18: training on the card.
+
+    (a, b) The flash-attention backward kernel (``fa_bwd.cuh``) at every
+    form of FA_BWD_FORMS in both dtypes (``fa_bwd_case``): the forward
+    with lse bitwise the forward without on both routes, lse within
+    FA_ATOL, the backward within FA_BWD_TOL of its plain version and
+    deterministic; each form timed beside its bound and, where it
+    computes the same function, sdpa's backward; a ragged length through
+    ``ops.mha`` under autograd.
+    (c) A float32 train step's loss and gradients, kernel against plain
+    attention: qwen2-1.5b at full width and TRAIN_PARITY_LAYERS layers.
+    (d) The training run through ``launch.train.train`` at full width and
+    depth (TRAIN_RUN): finite losses, ms per step, tokens/s, peak memory,
+    flash-attention launches a step (TRAIN_LAUNCHES, all forward launches
+    on ``wgmma``); then one more step under torch.profiler (device trace):
+    busy ms, idle share, top kernels and the backward's device ms."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import batch_at
+    from repro_torch.kernels.flash_attention import kernel as fk
+    from repro_torch.kernels.flash_attention.ref import mha_ref
+    from repro_torch.launch.train import train
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import lm
+    from repro_torch.models.params import leaves
+    from repro_torch.train.optim import OptConfig
+    from repro_torch.train.step import make_train_step, value_and_grad
+    out = {"forms": [], "ragged": []}
+    torch.cuda.empty_cache()
+    for dtype in ("bfloat16", "float32"):
+        for i, form in enumerate(FA_BWD_FORMS):
+            c = fa_bwd_case(*form, dtype, seed=1800 + i, timed=True)
+            out["forms"].append(c)
+            times = ""
+            if "ms" in c:
+                lib = ("none" if c["library_ms"] is None else
+                       f"{c['library_ms']:.4f} ms (device "
+                       f"{c['library_device_ms']:.4f})")
+                times = (f" | backward {c['ms']:.4f} ms (device "
+                         f"{c['device_ms']:.4f}), plain {c['plain_ms']:.4f} "
+                         f"ms, sdpa backward {lib}, bound "
+                         f"{c['bound_ms']:.4f} ms ({c['bound_by']}, "
+                         f"{c['flop']:.3e} FLOP)")
+            print(f"[train kernels] {c['what']}: B{c['b']} S{c['s']} "
+                  f"T{c['t']} H{c['h']} K{c['kh']} dqk{c['dqk']} dv{c['dv']} "
+                  f"{'causal' if c['causal'] else 'non-causal'} window "
+                  f"{c['window']} cap {c['softcap']} kv_len {c['kv_len']} "
+                  f"{dtype} (forward {c['route']}): O with lse bitwise, lse "
+                  f"err {c['lse_err']:.3g}; dq/dk/dv rel err "
+                  + "/".join(f"{e:.3g}" for e in c["rel_err"])
+                  + f" <= {c['tol']}, deterministic{times}", flush=True)
+            torch.cuda.empty_cache()
+        r = fa_bwd_ragged(dtype, seed=1890)
+        out["ragged"].append(r)
+        print(f"[train kernels] ragged S{r['s']} through ops.mha under "
+              f"autograd, {dtype}: rel err "
+              + "/".join(f"{e:.3g}" for e in r["rel_err"])
+              + f" <= {FA_BWD_TOL[dtype]}", flush=True)
+
+    # (c) a float32 train step, kernel against plain attention
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 matmuls are on: float32 parity needs full float32")
+    cfg32 = dataclasses.replace(get_config(TRAIN_RUN["arch"]),
+                                n_layers=TRAIN_PARITY_LAYERS,
+                                param_dtype="float32",
+                                compute_dtype="float32")
+    params = lm.init_params(cfg32, seed=0)
+    b, s = TRAIN_PARITY_SHAPE
+    batch = batch_at(0, 0, b, s, cfg32.vocab_size, device="cuda")
+    zero_counts()
+    k_loss, k_grads = value_and_grad(params, batch, cfg32)
+    k_fa = (fk.flash_attention.launches, fk.flash_attention_bwd.launches)
+    check(k_fa == (2 * TRAIN_PARITY_LAYERS, TRAIN_PARITY_LAYERS),
+          f"float32 train step: flash-attention launches (forward, "
+          f"backward) {k_fa}")
+    kernel_mha = attn_mod.mha
+    attn_mod.mha = mha_ref
+    try:
+        zero_counts()
+        p_loss, p_grads = value_and_grad(params, batch, cfg32)
+        check(fk.flash_attention.launches == fk.flash_attention_bwd.launches
+              == 0, "the plain train step launched the kernel")
+    finally:
+        attn_mod.mha = kernel_mha
+    loss_err = abs(float(k_loss) - float(p_loss)) / abs(float(p_loss))
+    check(loss_err <= TRAIN_LOSS_RTOL, f"float32 train step: loss kernel "
+          f"{float(k_loss)} vs plain {float(p_loss)} ({loss_err})")
+    grad_err = max(float((a - b_).abs().max() / b_.abs().max().clamp_min(
+        1e-30)) for a, b_ in zip(leaves(k_grads), leaves(p_grads)))
+    check(grad_err <= TRAIN_GRAD_TOL, f"float32 train step: a gradient "
+          f"leaf differs by {grad_err} of its largest magnitude")
+    out["parity"] = {"layers": TRAIN_PARITY_LAYERS, "shape": [b, s],
+                     "loss_kernel": float(k_loss), "loss_plain": float(p_loss),
+                     "loss_rel_err": loss_err, "grad_rel_err": grad_err,
+                     "launches": list(k_fa)}
+    print(f"[train parity] qwen2-1.5b full width, {TRAIN_PARITY_LAYERS} "
+          f"layers, float32, {b} x {s}: loss kernel {float(k_loss):.6f} vs "
+          f"plain {float(p_loss):.6f} (rel {loss_err:.3g} <= "
+          f"{TRAIN_LOSS_RTOL}); gradients within {grad_err:.3g} of each "
+          f"leaf's largest magnitude (<= {TRAIN_GRAD_TOL}); {k_fa[0]} "
+          f"forward and {k_fa[1]} backward launches", flush=True)
+    del params, k_grads, p_grads, batch
+    torch.cuda.empty_cache()
+
+    # (d) the training run at full width and depth
+    run = TRAIN_RUN
+    cfg = get_config(run["arch"])
+    tokens = run["global_batch"] * run["seq_len"]
+    steps = []
+    last = {"t": 0.0, "fwd": 0, "bwd": 0}
+
+    def on_step(step, metrics):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        fa_calls = dict(fk.flash_attention.calls)
+        steps.append({"step": step, "seconds": now - last["t"],
+                      "loss": float(metrics["loss"]),
+                      "grad_norm": float(metrics["grad_norm"]),
+                      "forward": fk.flash_attention.launches - last["fwd"],
+                      "backward": fk.flash_attention_bwd.launches
+                      - last["bwd"],
+                      "routes": sorted({key[-1] for key in fa_calls})})
+        last.update(t=now, fwd=fk.flash_attention.launches,
+                    bwd=fk.flash_attention_bwd.launches)
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    last["t"] = t0
+    state, losses = train(run["arch"], run["steps"], reduced=False,
+                          global_batch=run["global_batch"],
+                          seq_len=run["seq_len"], log_every=1,
+                          device="cuda", on_step=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    check(len(losses) == run["steps"]
+          and all(math.isfinite(x) for x in losses),
+          f"training run: losses {losses}")
+    for st in steps:
+        check(st["forward"] == TRAIN_LAUNCHES["forward"]
+              and st["backward"] == TRAIN_LAUNCHES["backward"],
+              f"training step {st['step']}: {st['forward']} forward and "
+              f"{st['backward']} backward flash-attention launches, want "
+              f"{TRAIN_LAUNCHES}")
+    routes = {key[-1] for key in fk.flash_attention.calls}
+    bwd_keys = sorted(fk.flash_attention_bwd.calls)
+    check(routes == {"wgmma"}, f"training run: forward routes {routes}")
+    steady = statistics.median(st["seconds"] for st in steps[1:])
+    out["run"] = {**run, "n_params": cfg.n_params(), "losses": losses,
+                  "steps": steps, "wall_s": wall, "first_step_s":
+                  steps[0]["seconds"], "step_ms": steady * 1e3,
+                  "tokens_per_s": tokens / steady,
+                  "max_memory_allocated": peak,
+                  "launches": {"forward": fk.flash_attention.launches,
+                               "backward": fk.flash_attention_bwd.launches},
+                  "backward_calls": [list(k) + [c] for k, c in
+                                     fk.flash_attention_bwd.calls.items()]}
+    print(f"[train] qwen2-1.5b at full width and depth ({cfg.n_layers} "
+          f"layers, {out['run']['n_params']} float32 parameters, float32 "
+          f"Adam, bf16 compute, train_accum {cfg.train_accum}, remat "
+          f"{cfg.remat_policy}), {run['global_batch']} x {run['seq_len']} "
+          f"tokens a step, {run['steps']} steps in {wall:.2f} s: losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f" | {steady * 1e3:.1f} ms a step (median of steps 2-"
+          f"{run['steps']}; the first {steps[0]['seconds'] * 1e3:.1f} ms), "
+          f"{tokens / steady:.0f} tokens/s, max_memory_allocated {peak} B; "
+          f"flash attention a step: {TRAIN_LAUNCHES['forward']} forward "
+          f"(wgmma) and {TRAIN_LAUNCHES['backward']} backward calls at "
+          f"{bwd_keys} | {card}", flush=True)
+    # one more step under torch.profiler, device activity alone
+    oc = OptConfig(lr=1e-3, warmup_steps=20, total_steps=run["steps"])
+    step_fn = make_train_step(cfg, oc)
+    nxt = batch_at(0, run["steps"], run["global_batch"], run["seq_len"],
+                   cfg.vocab_size, device="cuda")
+    box = {"state": state}
+    del state
+
+    def one_step():
+        box["state"], _ = step_fn(box["state"], nxt)
+    prof = device_busy(one_step, cpu=False)
+    prof["wall_ms"] = steady * 1e3
+    prof["idle_share"] = max(0.0, 1 - prof["busy_ms"] / prof["wall_ms"])
+    prof["bwd_ms"] = sum(t for key, _, t in prof["by_name"]
+                         if "fa_bwd" in key)
+    prof["bwd_kernels"] = sum(c for key, c, _ in prof["by_name"]
+                              if "fa_bwd" in key)
+    check(prof["bwd_kernels"] == 3 * TRAIN_LAUNCHES["backward"],
+          f"profiled step: {prof['bwd_kernels']} backward kernels for "
+          f"{TRAIN_LAUNCHES['backward']} calls of three")
+    out["profile"] = {k: prof[k] for k in prof if k != "by_name"}
+    out["profile"]["top12"] = [(k[:90], c, t) for k, c, t in
+                               prof["by_name"][:12]]
+    print(f"[train] profile of one step: device busy {prof['busy_ms']:.1f} "
+          f"ms of {prof['wall_ms']:.1f} ms (idle share "
+          f"{prof['idle_share']:.1%}), {prof['kernels']} kernels; flash "
+          f"attention forward {prof['flash_ms']:.1f} ms, backward "
+          f"{prof['bwd_ms']:.1f} ms ({prof['bwd_kernels']} kernels)",
+          flush=True)
+    for key, count, ms in prof["by_name"][:12]:
+        print(f"[train]   {ms:9.3f} ms x{count:6d}  {key[:90]}", flush=True)
+    del box, step_fn
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     import torch
@@ -3668,6 +4083,11 @@ def main():
     details["whisper"] = whisper_phase(card)
     t_whisper = time.perf_counter() - t0
     print(f"[time] phase 17 (whisper) {t_whisper:.1f}s", flush=True)
+    # 18. training (after phase 17's model is freed)
+    t0 = time.perf_counter()
+    details["train"] = train_phase(card)
+    t_train = time.perf_counter() - t0
+    print(f"[time] phase 18 (training) {t_train:.1f}s", flush=True)
 
     # 8-9. captured bitstreams and a generator-fleet campaign, at full size
     tmp = tempfile.mkdtemp(prefix="chip_smoke_capture_")
@@ -3700,7 +4120,8 @@ def main():
                           "elastic_faults": t3 - t2, "screening": t4 - t3,
                           "analysis": t5 - t4, "gemma2": t_gemma2,
                           "dense_archs": t_dense, "moe": t_moe,
-                          "recurrent": t_rec, "whisper": t_whisper}
+                          "recurrent": t_rec, "whisper": t_whisper,
+                          "train": t_train}
     print(f"[time] phase 8 (captured) {t1 - t0:.1f}s, phase 9 (campaign) "
           f"{t2 - t1:.1f}s, phase 10 (elastic, faults) {t3 - t2:.1f}s, "
           f"phase 11 (screening) {t4 - t3:.1f}s, phase 12 (analysis) "
@@ -3709,7 +4130,8 @@ def main():
           f"13) {t_dense:.1f}s, phase 15 (granite-moe, deepseek-v2, after "
           f"14) {t_moe:.1f}s, phase 16 (zamba2, xlstm, after 15) "
           f"{t_rec:.1f}s, phase 17 (whisper, after 16) {t_whisper:.1f}s, "
-          f"{t0 - t_start - t_gemma2 - t_dense - t_moe - t_rec - t_whisper:.1f}"
+          f"phase 18 (training, after 17) {t_train:.1f}s, "
+          f"{t0 - t_start - t_gemma2 - t_dense - t_moe - t_rec - t_whisper - t_train:.1f}"
           f"s before phase 8 besides them", flush=True)
 
     # the kernels at the shapes their main paths gave them
@@ -3770,6 +4192,8 @@ def main():
             "launches_moe": details["moe"]["launches"][name],
             "launches_recurrent": details["recurrent"]["launches"][name],
             "launches_whisper": details["whisper"]["launches"][name],
+            "launches_train": (details["train"]["run"]["launches"]["forward"]
+                               if name == "flash_attention" else 0),
             "max_abs_err": max(c["max_abs_err"] for c in
                                cases + details["parity"][name]
                                + (details["gemma2_attention"]
@@ -3787,6 +4211,22 @@ def main():
         if name == "flash_attention":
             # its non-causal launches in phase 17 (encoder and cross)
             rows[-1]["bidir"] = details["whisper"]["bidir"]
+    # the backward: its main path is phase 18's training run, every call at
+    # qwen2's training microbatch (the timed bfloat16 form)
+    train = details["train"]
+    timed = next(c for c in train["forms"]
+                 if "ms" in c and c["dtype"] == "bfloat16")
+    n_bwd = train["run"]["launches"]["backward"]
+    rows.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/flash_attention/fa_bwd.cuh",
+        "replaces": "src/repro/models/attention.py:154",
+        "launches": n_bwd,
+        "max_abs_err": max(c["max_abs_err"] for c in train["forms"]),
+        "ms": timed["ms"] * n_bwd, "device_ms": timed["device_ms"] * n_bwd,
+        "plain_ms": timed["plain_ms"] * n_bwd,
+        "bound_ms": timed["bound_ms"] * n_bwd, "bound_by": timed["bound_by"],
+        "library_ms": timed["library_ms"] * n_bwd})
     details["kernels"] = rows
     details["card"] = card
     details["seconds"] = time.perf_counter() - t_start

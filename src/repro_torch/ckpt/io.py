@@ -189,9 +189,14 @@ def save(path: str, leaves: List[Any]) -> None:
                         f"{type(leaves).__name__}")
     if any(x is None for x in leaves):
         raise TypeError("a checkpoint leaf cannot be None")
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     treedef = "PyTreeDef([" + ", ".join("*" * len(leaves)) + "])"
-    blob = packb({"leaves": list(leaves), "treedef": treedef})
+    _write(path, packb({"leaves": list(leaves), "treedef": treedef}))
+
+
+def _write(path: str, blob: bytes) -> None:
+    """``blob`` to ``path`` atomically: a temporary file in the same
+    directory, then ``os.replace``."""
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=os.path.dirname(path) or ".")
     with os.fdopen(fd, "wb") as f:
         f.write(blob)
@@ -207,3 +212,72 @@ def load_flat(path: str) -> list:
 
 def exists(path: str) -> bool:
     return os.path.exists(path)
+
+
+# ---------------------------------------------------------------------------
+# trees of tensors (the training state): the reference's save(path, tree)
+
+def treedef(tree) -> str:
+    """The string jax prints for the structure of a tree of nested dicts
+    (keys in sorted order, ``*`` for a leaf), as the reference writes it."""
+    def render(t):
+        if isinstance(t, dict):
+            return "{" + ", ".join(f"{k!r}: {render(t[k])}"
+                                   for k in sorted(t)) + "}"
+        return "*"
+    return f"PyTreeDef({render(tree)})"
+
+
+def _tensor_leaf(t):
+    """A tensor as the leaf the reference writes for the same array:
+    numpy for the dtypes numpy has; bfloat16 as its raw 2-byte words
+    under ``ml_dtypes``' type string ``<V2``."""
+    import torch
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return {b"__nd__": True, b"d": t.view(torch.int16).numpy().tobytes(),
+                b"t": "<V2", b"s": list(t.shape)}
+    return t.numpy()
+
+
+def save_tree(path: str, tree) -> None:
+    """``tree`` (nested dicts of tensors, numpy arrays or scalars) in the
+    reference's layout: its leaves in sorted key order and its treedef
+    string, so the file is byte for byte the one ``repro.ckpt.io.save``
+    writes for the same arrays."""
+    import torch
+    flat = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k])
+        else:
+            flat.append(_tensor_leaf(t) if isinstance(t, torch.Tensor) else t)
+    walk(tree)
+    _write(path, packb({"leaves": flat, "treedef": treedef(tree)}))
+
+
+def load_into(path: str, template):
+    """A file either package wrote, in the structure of ``template``
+    (nested dicts of tensors): each leaf a tensor of its template leaf's
+    shape, dtype and device (a ``<V2`` leaf is read as bfloat16 words)."""
+    import torch
+    it = iter(load_flat(path))
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        a = next(it)
+        if a.dtype.kind == "V":
+            x = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+        else:
+            x = torch.from_numpy(a)
+        if tuple(x.shape) != tuple(t.shape):
+            raise ValueError(f"checkpoint leaf of shape {tuple(x.shape)} "
+                             f"where the template has {tuple(t.shape)}")
+        return x.to(device=t.device, dtype=t.dtype)
+    out = build(template)
+    if next(it, None) is not None:
+        raise ValueError(f"{path} holds more leaves than the template")
+    return out

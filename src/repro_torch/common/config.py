@@ -1,14 +1,10 @@
 # repro: quarantine -- growth-seed LM serving path (every family of the reference); nothing in the battery system imports it
-"""Model configuration of the LM serving path (from the reference's
-``repro/common/config.py``: ``pad_to``, ``MoEConfig``, ``MLAConfig``,
-``SSMConfig``, ``XLSTMConfig`` and the 34 of ``ModelConfig``'s 38 fields
-that the port reads).
-
-The reference's other 4 fields are training knobs (remat, Adam's dtype,
-scan groups, gradient accumulation) that the port does not run yet;
-each comes back in the slice that first reads it. Until then a
-configuration that needs one cannot be written here, so none is
-silently ignored.
+"""Model configuration of the LM serving and training paths (from the
+reference's ``repro/common/config.py``: ``pad_to``, ``MoEConfig``,
+``MLAConfig``, ``SSMConfig``, ``XLSTMConfig`` and all 38 of
+``ModelConfig``'s fields, the four training knobs with the reference's
+defaults: Adam's moment dtype, the remat policy, scan groups and
+gradient accumulation).
 """
 from __future__ import annotations
 
@@ -111,8 +107,13 @@ class ModelConfig:
     # encoder frame embeddings (the reference's stub frontend)
     frontend: str = "tokens"           # tokens | fused | frames
 
+    # numerics / memory knobs (per-arch presets)
     param_dtype: str = "float32"
     compute_dtype: str = "bfloat16"
+    adam_dtype: str = "float32"        # bf16 for the 340B preset (8-bit-Adam-style)
+    remat_policy: str = "full"         # full | dots | none
+    scan_group: int = 0                # 0 = no groups; else groups of g units, each checkpointed
+    train_accum: int = 1               # gradient-accumulation microbatches
 
     # ----- derived -----
     @property

@@ -4,9 +4,6 @@
 48L d_model=8192 64H (GQA kv=8) d_ff=22016 vocab=65536; early-fusion VQ image
 tokens share the text vocab (frontend stub: inputs are token ids over the
 fused vocab). QK-norm for stability (per the paper).
-
-The reference's ``scan_group=8`` and ``train_accum=8`` are training knobs
-(its reduced form sets ``scan_group=0``); the port serves only.
 """
 import dataclasses
 
@@ -27,9 +24,12 @@ CONFIG = ModelConfig(
     rope=True,
     rope_theta=10000.0,
     frontend="fused",
+    scan_group=8,
+    train_accum=8,
 )
 
 
 def reduced():
     return dataclasses.replace(CONFIG, n_layers=2, d_model=64, n_heads=4,
-                               n_kv_heads=2, d_ff=128, vocab_size=256)
+                               n_kv_heads=2, d_ff=128, vocab_size=256,
+                               scan_group=0)

@@ -7,9 +7,6 @@ routed experts top-6, expert d_ff=1536, first layer dense (d_ff=12288),
 vocab=102400. ``n_kv_heads`` is 128 (MLA derives every head's k and v
 from the shared latent) and ``head_dim_`` (5120 / 128 = 40) sizes
 nothing: MLA's dims come from ``mla``.
-
-The reference's training knobs (``remat_policy="full"``,
-``train_accum=16``) are left out; the port serves only.
 """
 import dataclasses
 
@@ -33,6 +30,8 @@ CONFIG = ModelConfig(
     moe=MoEConfig(n_experts=160, top_k=6, d_ff_expert=1536,
                   n_shared=2, d_ff_shared=1536,
                   first_dense_layers=1, d_ff_dense=12288),
+    remat_policy="full",
+    train_accum=16,
 )
 
 

@@ -4,8 +4,6 @@
 46L d_model=4608 32H (GQA kv=16, head_dim=128) d_ff=36864 (GeGLU)
 vocab=256000; alternating local(4096)/global attention; attn softcap 50,
 final logit softcap 30; query scale 1/sqrt(d_model/n_heads)=1/sqrt(144).
-
-The reference's ``train_accum=4`` is a training knob; the port serves only.
 """
 import dataclasses
 
@@ -31,6 +29,7 @@ CONFIG = ModelConfig(
     final_softcap=30.0,
     query_scale=(4608 / 32) ** -0.5,
     post_block_norm=True,
+    train_accum=4,
 )
 
 

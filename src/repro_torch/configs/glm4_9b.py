@@ -1,8 +1,5 @@
 # repro: quarantine -- growth-seed LM model configs; nothing in the battery system reads them
-"""glm4-9b [hf:THUDM/glm-4-9b]. 40L d4096 32H (GQA kv=2) d_ff=13696 vocab=151552.
-
-The reference's ``train_accum=8`` is a training knob; the port serves only.
-"""
+"""glm4-9b [hf:THUDM/glm-4-9b]. 40L d4096 32H (GQA kv=2) d_ff=13696 vocab=151552."""
 import dataclasses
 
 from repro_torch.common.config import ModelConfig
@@ -21,6 +18,7 @@ CONFIG = ModelConfig(
     qkv_bias=True,                 # GLM-4 uses QKV bias
     rope=True,
     rope_theta=10000.0,
+    train_accum=8,
 )
 
 

@@ -1,8 +1,5 @@
 # repro: quarantine -- growth-seed LM model configs; nothing in the battery system reads them
-"""qwen2-1.5b [arXiv:2407.10671]. 28L d1536 12H (GQA kv=2) d_ff=8960 vocab=151936, QKV bias.
-
-The reference's ``train_accum=4`` is a training knob; the port serves only.
-"""
+"""qwen2-1.5b [arXiv:2407.10671]. 28L d1536 12H (GQA kv=2) d_ff=8960 vocab=151936, QKV bias."""
 import dataclasses
 
 from repro_torch.common.config import ModelConfig
@@ -21,6 +18,7 @@ CONFIG = ModelConfig(
     rope=True,
     rope_theta=1000000.0,
     tie_embeddings=True,
+    train_accum=4,                 # 12 heads unshardable on TP=16 -> shrink
 )
 
 

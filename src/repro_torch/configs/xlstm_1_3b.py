@@ -20,6 +20,7 @@ CONFIG = ModelConfig(
     rope=False,
     xlstm=XLSTMConfig(slstm_every=8, proj_factor_m=2.0,
                       proj_factor_s=4.0 / 3.0, conv_width=4, chunk=128),
+    train_accum=4,
 )
 
 

@@ -23,6 +23,7 @@ CONFIG = ModelConfig(
     rope=True,
     ssm=SSMConfig(d_state=64, d_conv=4, expand=2, head_dim=64, chunk=128),
     shared_attn_every=6,
+    train_accum=4,
 )
 
 

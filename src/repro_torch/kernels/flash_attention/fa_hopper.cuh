@@ -112,6 +112,7 @@ constexpr int kThreads = 384;            // 2 consumer + 1 producer warpgroup
 constexpr int kConsumers = 256;
 constexpr float kNeg = -2.3819763e38f;   // the reference's mask value
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Shared-memory layout in bytes from a 1024-byte aligned base.
 template <int DH> struct Layout {
@@ -133,6 +134,7 @@ struct Params {
   int causal;            // 1: keep kpos <= qpos; 0: no diagonal
   int kv_len;            // keep kpos < kv_len, 0 < kv_len <= T
   int window;            // 0: no window; w > 0: keep qpos - kpos < w
+  float* lse;            // null, or (B, H, S): rows' log-sum-exp (natural)
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -417,6 +419,13 @@ __device__ __forceinline__ void consume(uint32_t base, const Params& p,
     l0 += __shfl_xor_sync(0xffffffffu, l0, off);
     l1 += __shfl_xor_sync(0xffffffffu, l1, off);
   }
+  // each row's log-sum-exp for the backward, when asked: m is in the log2
+  // domain, so lse = (m + log2(l)) ln 2; o is the same either way
+  if (p.lse != nullptr && (lane & 3) == 0) {
+    float* lp = p.lse + (static_cast<long long>(b) * p.H + h) * p.S + q0 + row;
+    lp[0] = (m0 + log2f(l0)) * kLn2;
+    lp[8] = (m1 + log2f(l1)) * kLn2;
+  }
   const float inv0 = 1.f / fmaxf(l0, 1e-37f), inv1 = 1.f / fmaxf(l1, 1e-37f);
   __nv_bfloat16* out0 = p.o + ((static_cast<long long>(b) * p.S + q0 + row) *
                                    p.H + h) * DH + col;
@@ -541,7 +550,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    long long qss, long long qsh, long long ksb, long long kss,
                    long long ksh, long long vsb, long long vss, long long vsh,
                    float scale, float softcap, int causal, int kv_len,
-                   int window, cudaStream_t stream) {
+                   int window, float* lse, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   if (!tensor_map(&tq, q, B, S, H, DH, qsb, qss, qsh) ||
       !tensor_map(&tk, k, B, T, KH, DH, ksb, kss, ksh) ||
@@ -553,7 +562,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   Params p{static_cast<__nv_bfloat16*>(o), S, T, H, KH, scale * kLog2e,
            softcap != 0.f ? scale / softcap : 0.f, softcap * kLog2e,
-           softcap != 0.f, causal, kv_len, window};
+           softcap != 0.f, causal, kv_len, window, lse};
   dim3 grid(B * H, S / kBQ);
   fa_wgmma<DH><<<grid, kThreads, smem, stream>>>(tq, tk, tv, p);
   return cudaGetLastError();

@@ -1,10 +1,14 @@
 // Flash attention, forward, for Hopper (sm_90a): the CUDA-core
-// route. The launcher (kernel.py) takes it for float32, for bfloat16 at
-// head dims other than 64 and 128, and for any call whose v head dim dv
-// differs from q's and k's dh; bfloat16 at dh = dv = 64 or 128 takes the
-// tensor-core route of fa_hopper.cuh (entry repro_flash_attention_wgmma
-// at the end of this file). Tensor cores would compute float32 only in
-// TF32, which cannot hold the float32 tolerance of 2e-5.
+// route, and the C entries of both forward routes and of the backward
+// (fa_bwd.cuh, entry repro_flash_attention_bwd at the end of this file;
+// each forward route writes its rows' log-sum-exp for it when given a
+// pointer). The launcher (kernel.py) takes this route for float32, for
+// bfloat16 at head dims other than 64 and 128, and for any call whose v
+// head dim dv differs from q's and k's dh; bfloat16 at dh = dv = 64 or
+// 128 takes the tensor-core route of fa_hopper.cuh (entry
+// repro_flash_attention_wgmma at the end of this file). Tensor cores
+// would compute float32 only in TF32, which cannot hold the float32
+// tolerance of 2e-5.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/flash_attention/kernel.py
 // (_fa_kernel / flash_attention) together with the GQA repeat and the
@@ -88,6 +92,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "fa_bwd.cuh"
 #include "fa_hopper.cuh"
 
 namespace {
@@ -128,6 +133,7 @@ struct Args {
   int causal;  // 1: keep kpos <= qpos; 0: no diagonal
   int kv_len;  // keep kpos < kv_len, 0 < kv_len <= T
   int window;  // 0: no window; w > 0 (causal only): keep qpos - kpos < w
+  float* lse;  // null, or (B, H, S): each row's log-sum-exp (natural log)
 };
 
 // Row stride of a shared tile: DH elements plus one 32-bit word.
@@ -273,6 +279,13 @@ __global__ void __launch_bounds__(kThreads) fa_fwd(Args a) {
     }
   }
 
+  // each row's log-sum-exp for the backward, when asked: m + log(l), from
+  // the state the output is finalized from, so o is the same either way
+  if (a.lse != nullptr && tx == 0) {
+    float* lp = a.lse + ((long long)b * a.H + h) * a.S + q0 + r0;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) lp[i] = m[i] + logf(l[i]);
+  }
   T* op = static_cast<T*>(a.o);
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
@@ -325,7 +338,9 @@ bool valid_mask(int T, int causal, int kv_len, int window) {
 // causal = 1 also qpos >= kpos, and with window > 0 also qpos - kpos <
 // window (window 0 is no window; a window needs causal = 1 and kv_len =
 // T). causal = 0 is the non-causal form. S and T are multiples of 128, H
-// a multiple of KH, 0 < dv <= dh <= 192, window >= 0.
+// a multiple of KH, 0 < dv <= dh <= 192, window >= 0. lse: null, or a
+// float32 (B, H, S) that takes each row's log-sum-exp (natural log, after
+// the softcap and the mask) for the backward; o is the same either way.
 // Returns the CUDA error code: 0 on success, cudaErrorInvalidValue on
 // arguments it does not take. Launches on `stream`.
 extern "C" int repro_flash_attention(
@@ -333,13 +348,13 @@ extern "C" int repro_flash_attention(
     int S, int T, int H, int KH, int dh, int dv, long long qsb,
     long long qss, long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, int causal, int kv_len,
-    float scale, float softcap, int window, void* stream) {
+    float* lse, float scale, float softcap, int window, void* stream) {
   if (B <= 0 || S % 128 || T % 128 || S <= 0 || T <= 0 || KH <= 0 ||
       H % KH || dh <= 0 || dh > 192 || dv <= 0 || dv > dh ||
       !valid_mask(T, causal, kv_len, window))
     return cudaErrorInvalidValue;
   Args a{q, k, v, o, S, T, H, KH, dh, dv, qsb, qss, qsh, ksb, kss, ksh,
-         vsb, vss, vsh, scale, softcap, causal, kv_len, window};
+         vsb, vss, vsh, scale, softcap, causal, kv_len, window, lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case 0: return launch_dh<float>(a, B, s);
@@ -358,7 +373,7 @@ extern "C" int repro_flash_attention_wgmma(
     int S, int T, int H, int KH, int dh, int dv, long long qsb,
     long long qss, long long qsh, long long ksb, long long kss, long long ksh,
     long long vsb, long long vss, long long vsh, int causal, int kv_len,
-    float scale, float softcap, int window, void* stream) {
+    float* lse, float scale, float softcap, int window, void* stream) {
   if (dtype != 1 || B <= 0 || S % 128 || T % 128 || S <= 0 || T <= 0 ||
       KH <= 0 || H % KH || (dh != 64 && dh != 128) || dv != dh ||
       !valid_mask(T, causal, kv_len, window))
@@ -371,8 +386,39 @@ extern "C" int repro_flash_attention_wgmma(
   return dh == 64
              ? fa_hopper::launch<64>(q, k, v, o, B, S, T, H, KH, qsb, qss, qsh,
                                      ksb, kss, ksh, vsb, vss, vsh, scale,
-                                     softcap, causal, kv_len, window, s)
+                                     softcap, causal, kv_len, window, lse, s)
              : fa_hopper::launch<128>(q, k, v, o, B, S, T, H, KH, qsb, qss,
                                       qsh, ksb, kss, ksh, vsb, vss, vsh, scale,
-                                      softcap, causal, kv_len, window, s);
+                                      softcap, causal, kv_len, window, lse, s);
+}
+
+// The backward (fa_bwd.cuh), on the CUDA cores for both dtypes: three
+// launches, D = rowsum(dO . O) into the float32 scratch dsum (B, H, S),
+// then dK and dV, then dQ. q, k, v as the forward takes them (the same
+// strides, dtype, shapes and mask arguments); o and dO contiguous (B, S,
+// H, dv) in q's dtype; lse the forward's (B, H, S) float32; dq, dk and dv
+// written contiguous (B, S, H, dh), (B, T, KH, dh) and (B, T, KH, dv) in
+// q's dtype, every element. No atomics: the same inputs give the same
+// bits. Returns the CUDA error code of the first launch that failed (0 on
+// success, cudaErrorInvalidValue on arguments it does not take).
+extern "C" int repro_flash_attention_bwd(
+    int dtype, const void* q, const void* k, const void* v, const void* o,
+    const void* d_o, const float* lse, float* dsum, void* dq, void* dk,
+    void* dv_out, int B, int S, int T, int H, int KH, int dh, int dv,
+    long long qsb, long long qss, long long qsh, long long ksb, long long kss,
+    long long ksh, long long vsb, long long vss, long long vsh, int causal,
+    int kv_len, float scale, float softcap, int window, void* stream) {
+  if (B <= 0 || S % 128 || T % 128 || S <= 0 || T <= 0 || KH <= 0 ||
+      H % KH || dh <= 0 || dh > 192 || dv <= 0 || dv > dh ||
+      !valid_mask(T, causal, kv_len, window))
+    return cudaErrorInvalidValue;
+  fa_bwd::Args a{q, k, v, o, d_o, lse, dsum, dq, dk, dv_out, S, T, H, KH, dh,
+                 dv, qsb, qss, qsh, ksb, kss, ksh, vsb, vss, vsh, scale,
+                 softcap, causal, kv_len, window};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return fa_bwd::launch_dh<float>(a, B, s);
+    case 1: return fa_bwd::launch_dh<__nv_bfloat16>(a, B, s);
+    default: return cudaErrorInvalidValue;
+  }
 }

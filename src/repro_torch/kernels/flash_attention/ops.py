@@ -13,18 +13,55 @@ real query under it too. The non-causal form (the reference's
 ``mode="bidir"``) passes the real key count ``kv_len = T`` to the kernel,
 which masks the padded keys, so it takes any S and T. A CUDA tensor goes
 to the kernel, a CPU tensor to the plain version.
+
+Gradients: when grad is enabled and q, k or v requires it, ``mha`` goes
+through ``_Attention``, a ``torch.autograd.Function`` around the padded
+call. On CUDA its forward saves (q, k, v, o, lse) from the kernel's
+forward with ``return_lse=True`` and its backward is the kernel's
+(``flash_attention_bwd``); on the CPU the same Function runs the plain
+versions (``mha_ref(return_lse=True)``, ``attention_bwd_ref``). Padded
+query rows get a zero output gradient (the slice's backward), so they
+add nothing. Without grad, ``mha`` makes the serving call unchanged.
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.flash_attention.kernel import BLOCK, flash_attention
-from repro_torch.kernels.flash_attention.ref import mha_ref
+from repro_torch.kernels.flash_attention.kernel import (BLOCK, flash_attention,
+                                                        flash_attention_bwd)
+from repro_torch.kernels.flash_attention.ref import attention_bwd_ref, mha_ref
 
 
 def _pad_seq(x, n):
     return x if x.shape[1] == n else F.pad(x, (0, 0, 0, 0, 0, n - x.shape[1]))
+
+
+def _forward(q, k, v, mask, return_lse=False):
+    """The padded call on the kernel (CUDA) or its plain version (CPU)."""
+    if q.is_cuda:
+        return flash_attention(q, k, v, **mask, return_lse=return_lse)
+    if q.device.type == "cpu":
+        return mha_ref(q, k, v, **mask, return_lse=return_lse)
+    raise ValueError(f"no flash-attention kernel for device {q.device}")
+
+
+class _Attention(torch.autograd.Function):
+    """Attention on padded q, k, v with the kernel's backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask):
+        o, lse = _forward(q, k, v, mask, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.mask = mask
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd if q.is_cuda else attention_bwd_ref
+        dq, dk, dv = bwd(q, k, v, o, lse, do, **ctx.mask)
+        return dq, dk, dv, None
 
 
 def mha(q, k, v, *, scale, softcap=0.0, window=0, causal=True):
@@ -34,7 +71,8 @@ def mha(q, k, v, *, scale, softcap=0.0, window=0, causal=True):
     with it those with ``0 <= qpos - kpos < w`` (the reference's local
     attention); ``causal=False`` keeps every key (the Pallas kernel's
     non-causal form: whisper's encoder self-attention and its decoder's
-    cross attention) and takes no window."""
+    cross attention) and takes no window. Differentiable in q, k and v
+    (``_Attention``)."""
     if window < 0:
         raise ValueError(f"window {window} is negative (0 is no window)")
     if window and not causal:
@@ -49,14 +87,12 @@ def mha(q, k, v, *, scale, softcap=0.0, window=0, causal=True):
                          f"keys would be attended (S={s} > T)")
     # the causal form masks padded keys by position; the non-causal one
     # by the key count
-    kv_len = tp if causal else t
+    mask = {"scale": scale, "softcap": softcap, "window": window,
+            "causal": causal, "kv_len": tp if causal else t}
     q, k, v = _pad_seq(q, sp), _pad_seq(k, tp), _pad_seq(v, tp)
-    if q.is_cuda:
-        o = flash_attention(q, k, v, scale=scale, softcap=softcap,
-                            window=window, causal=causal, kv_len=kv_len)
-    elif q.device.type == "cpu":
-        o = mha_ref(q, k, v, scale=scale, softcap=softcap, window=window,
-                    causal=causal, kv_len=kv_len)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        o = _Attention.apply(q, k, v, mask)
     else:
-        raise ValueError(f"no flash-attention kernel for device {q.device}")
+        o = _forward(q, k, v, mask)
     return o[:, :s]

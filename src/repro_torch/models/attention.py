@@ -39,6 +39,9 @@ from repro_torch.models.common import (apply_rope, rmsnorm, rope_angles,
                                        softcap)
 from repro_torch.models.params import P
 
+# the reference's mask value (~ the lowest bfloat16), used by the loss's
+# padded-vocabulary mask
+NEG_INF = -2.3819763e38
 KINDS = ("global", "local")
 MODES = ("causal", "bidir")
 # qk-norm's eps: the reference's ``_rmsnorm_vec`` default, not cfg.norm_eps

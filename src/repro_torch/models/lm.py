@@ -6,6 +6,7 @@ Public surface:
   model_spec(cfg)                           -> param Spec tree
   init_params(cfg, seed, device=None)       -> materialized params
   forward(params, tokens, cfg, frames=None) -> (logits (B, S, V_padded), aux)
+  loss_fn(params, batch, cfg)               -> scalar loss (CE + MoE aux)
   init_cache(cfg, batch, max_seq, ...)      -> decode cache
   count_params(cfg, active_only=False)      -> int (shape-only)
 
@@ -49,6 +50,20 @@ rows) and runs ``units`` of causal self-attention, cross attention over
 the encoder output (``cross``) and the MLP, each pre-normed. Its cache
 holds the decoder's k/v (``units``) and the cross attention's k/v of
 the ``encoder_seq`` frames (``cross``), which decode reads unchanged.
+Training (``forward_hidden``, ``loss_fn``): the reference's remat
+(``_remat``) is ``torch.utils.checkpoint`` (non-reentrant) under
+``cfg.remat_policy`` while autograd records: ``full`` recomputes every
+activation in the backward, ``dots`` saves the matrix products without
+batch dims (``aten.mm``/``addmm``, the reference's
+``checkpoint_dots_with_no_batch_dims``) and recomputes the rest,
+``none`` saves everything. It wraps what the reference's scans wrap:
+each unit (``_scan_units``; ``scan_group`` g > 0 also checkpoints
+groups of g units around the checkpointed units), moe's leading dense
+blocks, whisper's encoder and decoder layers, xlstm's mLSTM and
+zamba2's Mamba-2 inner layers, the tail's too. ``loss_fn`` is the
+reference's chunked cross-entropy: ``LOSS_CHUNK`` positions at a time,
+each chunk checkpointed, the padded vocabulary masked with ``NEG_INF``,
+summed in float32, then ``ce + aux``.
 """
 from __future__ import annotations
 
@@ -57,6 +72,7 @@ import math
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.common.device import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -72,8 +88,11 @@ from repro_torch.models.params import (P, count_spec_params, init_from_spec,
 
 FAMILIES = ("dense", "vlm", "moe", "audio", "ssm", "hybrid")
 FRONTENDS = ("tokens", "fused", "frames")
+REMAT_POLICIES = ("full", "dots", "none")
 # rows of whisper's learned decoder positions (the reference's)
 WHISPER_MAX_POS = 32768
+# positions per chunk of the fused cross-entropy (the reference's)
+LOSS_CHUNK = 512
 
 
 def _check_ported(cfg):
@@ -101,6 +120,10 @@ def _check_ported(cfg):
                                    or cfg.shared_attn_every < 1):
         raise ValueError(f"{cfg.arch_id}: the hybrid family needs cfg.ssm "
                          f"and shared_attn_every >= 1")
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r} "
+                         f"({cfg.arch_id}): the reference has "
+                         f"{REMAT_POLICIES}")
     act_fn(cfg.act)
 
 
@@ -284,6 +307,16 @@ def unit(stacked, i):
     return tree_map(lambda a: a[i], stacked)
 
 
+def unstack(stacked):
+    """Every unit's slice of a stacked tree, a list (views, no copy): one
+    ``unbind`` a leaf, whose backward stacks the units' gradients once.
+    Training slices through it: a slice per unit (``unit``) would have
+    autograd add one full-size gradient of the stack per unit."""
+    parts = tree_map(lambda a: a.unbind(0), stacked)
+    n = len(leaves(parts)[0])
+    return [tree_map(lambda p: p[i], parts) for i in range(n)]
+
+
 def embed(params, tokens, cfg):
     cdt = _cdtype(cfg)
     x = params["embed"][tokens].to(cdt)
@@ -350,20 +383,27 @@ def check_frames(cfg, tokens, frames):
                          f"{None if frames is None else tuple(frames.shape)}")
 
 
-def encode(params, frames, cfg):
+def encode(params, frames, cfg, remat=False):
     """whisper's encoder: frames (B, T, D), cast to the compute dtype,
     plus sinusoidal positions (in that dtype), through the ``encoder``
     stack of pre-norm blocks (non-causal self-attention, then the MLP),
-    then ``enc_final_norm`` -> (B, T, D)."""
+    then ``enc_final_norm`` -> (B, T, D). ``remat``: each layer under
+    ``_remat`` (training)."""
     cdt = _cdtype(cfg)
     t, d = frames.shape[1], frames.shape[2]
     x = frames.to(cdt) + sinusoid_pos(t, d, cdt, frames.device)[None]
-    for i in range(cfg.n_encoder_layers):
-        p = unit(params["encoder"], i)
+    layers = unstack(params["encoder"])
+
+    def layer(x, i):
+        p = layers[i]
         x = x + attn_mod.attention(p["attn"],
                                    apply_norm(p["pre_attn"], x, cfg), cfg,
                                    mode="bidir")
-        x = x + mlp(p["mlp"], apply_norm(p["pre_mlp"], x, cfg), cfg)
+        return x + mlp(p["mlp"], apply_norm(p["pre_mlp"], x, cfg), cfg)
+    if remat:
+        layer = _remat(layer, cfg)
+    for i in range(cfg.n_encoder_layers):
+        x = layer(x, i)
     return apply_norm(params["enc_final_norm"], x, cfg)
 
 
@@ -385,39 +425,138 @@ def decoder_block(p, x, enc, cfg):
     return x, {"k": k, "v": v}, {"k": xk, "v": xv}
 
 
+# ---------------------------------------------------------------------------
+# remat and the unit loop (the reference's ``_remat`` and ``_scan_units``)
+
+# the matrix products without batch dims: what ``dots`` saves
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_contexts():
+    """Selective checkpoint: save ``_DOTS``' outputs, recompute the rest
+    (the reference's ``checkpoint_dots_with_no_batch_dims``)."""
+    from torch.utils.checkpoint import (CheckpointPolicy,
+                                        create_selective_checkpoint_contexts)
+
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return create_selective_checkpoint_contexts(policy)
+
+
+def _remat(fn, cfg):
+    """``fn`` under ``cfg.remat_policy`` while autograd records: ``full``
+    checkpoints it (non-reentrant; its activations recomputed in the
+    backward), ``dots`` checkpoints it saving the matrix products, and
+    ``none`` (or no grad) runs it as it is."""
+    if cfg.remat_policy == "none":
+        return fn
+    kw = {"context_fn": _dots_contexts} if cfg.remat_policy == "dots" else {}
+
+    def run(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return run
+
+
+def _scan_units(body, carry, n, cfg):
+    """``carry = body(carry, i)`` over units ``i < n``, each unit under
+    ``_remat``; with ``cfg.scan_group`` g > 0 dividing n (and n > g), in
+    groups of g units, each group under ``_remat`` too (the reference's
+    nested scan-of-scan)."""
+    body_r = _remat(body, cfg)
+    g = cfg.scan_group
+    if g and n % g == 0 and n > g:
+        def group(c, i0):
+            for i in range(i0, i0 + g):
+                c = body_r(c, i)
+            return c
+        group_r = _remat(group, cfg)
+        for i0 in range(0, n, g):
+            carry = group_r(carry, i0)
+        return carry
+    for i in range(n):
+        carry = body_r(carry, i)
+    return carry
+
+
+def _block(p, x, cfg, blk):
+    """One block on the full sequence -> (x, aux (0 for a dense MLP))."""
+    x, _, a = apply_attn_block(p, x, cfg, blk)
+    return x, (torch.zeros((), dtype=torch.float32, device=x.device)
+               if a is None else a)
+
+
 def forward_hidden(params, tokens, cfg, frames=None):
     """tokens: (B, S) int (and, for the audio family, ``frames`` (B, T,
     D)) -> (final-normed hidden (B, S, D), aux loss: the sum of the MoE
-    layers' aux losses, 0 without any)."""
+    layers' aux losses, 0 without any). Under autograd the layers run
+    under ``_remat`` at the reference's granularity."""
     _check_ported(cfg)
     check_frames(cfg, tokens, frames)
     x = embed(params, tokens, cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.family == "audio":
-        enc = encode(params, frames, cfg)
+        enc = encode(params, frames, cfg, remat=True)
         x = x + params["pos_embed"][:tokens.shape[1]].to(x.dtype)[None]
+
+        dec = unstack(params["units"])
+
+        def dec_layer(x, i):
+            return decoder_block(dec[i], x, enc, cfg)[0]
+        dec_layer = _remat(dec_layer, cfg)
         for i in range(cfg.n_layers):
-            x, _, _ = decoder_block(unit(params["units"], i), x, enc, cfg)
+            x = dec_layer(x, i)
     elif cfg.family == "ssm":
         n_super, n_m = n_superblocks(cfg)
-        for i in range(n_super):
-            up = unit(params["units"], i)
-            for j in range(n_m):
-                x = x + xlstm_mod.mlstm(unit(up["mlstm"], j), x, cfg)
-            x = x + xlstm_mod.slstm(up["slstm"], x, cfg)
+
+        def mlstm_layer(x, mp):
+            return x + xlstm_mod.mlstm(mp, x, cfg)
+        mlstm_layer = _remat(mlstm_layer, cfg)
+        units = unstack(params["units"])
+
+        def superblock(carry, i):
+            x, a = carry
+            up = units[i]
+            for mp in unstack(up["mlstm"]):
+                x = mlstm_layer(x, mp)
+            return x + xlstm_mod.slstm(up["slstm"], x, cfg), a
+        x, aux = _scan_units(superblock, (x, aux), n_super, cfg)
     elif cfg.family == "hybrid":
-        for _, i, n in hybrid_groups(cfg):
-            x, _, _ = apply_attn_block(params["shared_block"], x, cfg, SHARED)
-            layers = group_params(params, i)
-            for j in range(n):
-                x = x + ssm_mod.mamba2(unit(layers, j), x, cfg)
+        def mamba_layer(x, mp):
+            return x + ssm_mod.mamba2(mp, x, cfg)
+        mamba_layer = _remat(mamba_layer, cfg)
+        units = unstack(params["units"])
+
+        def group(carry, i):
+            x, a = carry
+            x, b = _block(params["shared_block"], x, cfg, SHARED)
+            stack = params["tail"] if i is None else units[i]["mamba"]
+            for mp in unstack(stack):
+                x = mamba_layer(x, mp)
+            return x, a + b
+        n_full = cfg.n_layers // cfg.shared_attn_every
+        x, aux = _scan_units(group, (x, aux), n_full, cfg)
+        if cfg.n_layers % cfg.shared_attn_every:
+            x, aux = group((x, aux), None)
     for pkey, _, n, blocks in stacks(cfg):
-        for i in range(n):
-            up = unit(params[pkey], i)
+        ups = unstack(params[pkey])
+
+        def body(carry, i, ups=ups, blocks=blocks):
+            x, a = carry
+            up = ups[i]
             for blk in blocks:
-                x, _, a = apply_attn_block(block_params(up, blk), x, cfg, blk)
-                if a is not None:
-                    aux = aux + a
+                x, b = _block(block_params(up, blk), x, cfg, blk)
+                a = a + b
+            return x, a
+        if pkey == "head_blocks":
+            # moe's leading dense layers: each under _remat, no groups
+            body_r = _remat(body, cfg)
+            for i in range(n):
+                x, aux = body_r((x, aux), i)
+        else:
+            x, aux = _scan_units(body, (x, aux), n, cfg)
     x = apply_norm(params["final_norm"], x, cfg)
     return x, aux
 
@@ -436,6 +575,47 @@ def _lm_logits(params, x, cfg):
     else:
         logits = x @ params["lm_head"].to(x.dtype)
     return softcap(logits, cfg.final_softcap)
+
+
+# ---------------------------------------------------------------------------
+# loss
+
+def _ce_chunk(params, x_c, labels_c, cfg):
+    """Summed cross-entropy of one sequence chunk, fused with the vocab
+    projection: float32 logits (the padded vocabulary masked with
+    ``NEG_INF``), their log-sum-exp less the gold logit."""
+    logits = _lm_logits(params, x_c, cfg).float()
+    if cfg.padded_vocab != cfg.vocab_size:
+        pad = torch.arange(cfg.padded_vocab,
+                           device=logits.device) >= cfg.vocab_size
+        logits = torch.where(pad, torch.tensor(attn_mod.NEG_INF,
+                                               device=logits.device), logits)
+    gold = logits.gather(-1, labels_c[..., None].long())[..., 0]
+    return (torch.logsumexp(logits, dim=-1) - gold).sum()
+
+
+def loss_fn(params, batch, cfg):
+    """Mean next-token cross-entropy plus the MoE aux loss. ``batch``:
+    ``tokens`` and ``labels`` (B, S) (and the audio family's ``frames``).
+    The cross-entropy runs over chunks of ``LOSS_CHUNK`` positions (the
+    whole sequence when that does not divide S), each checkpointed so the
+    backward recomputes its logits; never (B, S, V) at once."""
+    x, aux = forward_hidden(params, batch["tokens"], cfg,
+                            frames=batch.get("frames"))
+    labels = batch["labels"]
+    b, s, _ = x.shape
+    ck = min(LOSS_CHUNK, s)
+    if s % ck:
+        ck = s
+
+    def chunk(xc, lc):
+        return _ce_chunk(params, xc, lc, cfg)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(0, s, ck):
+        xc, lc = x[:, i:i + ck], labels[:, i:i + ck]
+        total = total + (checkpoint(chunk, xc, lc, use_reentrant=False)
+                         if torch.is_grad_enabled() else chunk(xc, lc))
+    return total / (b * s) + aux
 
 
 def init_cache(cfg, batch: int, max_seq: int, dtype=None, device=None):

@@ -214,8 +214,13 @@ def test_port_kernels_shared_memory(tree):
         "hist_global": (16, False, 16),
         "gf2_rank32": (4 * 128 * 33, False, 4 * 128 * 33),
         "mwc_words": (0, True, 4 * 128 * 65),
-        "fa_fwd": (0, True, 164920),
-        "fa_wgmma": (0, True, 164920),
+        # the flash-attention directory's launches are bounded by its
+        # largest annotation: the backward's 214,784 B (fa_bwd.cuh)
+        "fa_fwd": (0, True, 214784),
+        "fa_wgmma": (0, True, 214784),
+        "fa_bwd_dot": (0, False, 0),
+        "fa_bwd_dkdv": (0, True, 214784),
+        "fa_bwd_dq": (0, True, 214784),
     }
     assert all(total <= SMEM_BUDGET_BYTES for _, _, total in got.values())
 

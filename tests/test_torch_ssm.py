@@ -354,7 +354,7 @@ def test_config_and_param_count_match_reference():
     assert dataclasses.asdict(SSMConfig()) == dataclasses.asdict(RefSSM())
     ported = {f.name for f in dataclasses.fields(type(get_config(ARCH)))}
     assert {"ssm", "xlstm", "shared_attn_every"} <= ported
-    assert len(ported) == 34            # 38 less the 4 training knobs
+    assert len(ported) == 38            # the training knobs too
     defaults = {f.name: f.default for f in dataclasses.fields(RefConfig)
                 if f.default is not dataclasses.MISSING}
     for mine, ref in ((get_config(ARCH), jax_config(ARCH)),
